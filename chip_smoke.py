@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON object per line:
+
+1. device — the card's name and power limit (``nvidia-smi``), the torch
+   and CUDA versions, the TF32 flags;
+2. build — ``nvcc`` builds every kernel of the main path from the sources
+   in this checkout (into ``build/torch_kernels/``);
+3. kernel — each CUDA kernel against its plain PyTorch version on the card,
+   at the shapes of the main path and a few ragged ones, with its time, the
+   plain version's time and the least time the card could take (its bound);
+4. reference — a small run of the slice on the card against the same run
+   on the CPU, with the same draws;
+5. slice — ``run_federated`` with CWFL on the static scenario at the full
+   width of the paper's MNIST model (K=50 clients, C=3 clusters, the
+   784-200-100-64-10 MLP, d=184,214) for a few rounds, with every kernel's
+   launch count over that run;
+6. profile — the same slice under ``torch.profiler``, its window on the
+   rounds after the first: device time by kernel, launches per round and
+   the device's idle share.
+
+The last two lines are the ``{"kernels": [...]}`` summary and
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the
+script exits non-zero; it needs a CUDA device and has no CPU path.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# Published peaks of the H100 SXM (NVIDIA data sheet, dense): device-memory
+# bytes/s and f32 FLOP/s outside the tensor cores, matched on the name the
+# card reports.
+PEAKS = (("H100 80GB HBM3", 3.35e12, 67e12),)
+
+DEVICE = "cuda"
+F32_ATOL = 1e-5          # f32 sums in another order than cuBLAS's
+BF16_ULP_REL = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_peaks(name: str):
+    for key, bw, flops in PEAKS:
+        if key in name:
+            return bw, flops
+    raise RuntimeError(f"no published peaks for {name!r}; add them to PEAKS")
+
+
+def time_cold(fn, reps: int = 30, flush_bytes: int = 256 << 20) -> float:
+    """Median ms of ``fn()`` on the card, CUDA events around each call,
+    with the 50 MB L2 flushed before each (the round's working set is
+    larger than L2 anyway)."""
+    flush = torch.empty(flush_bytes // 4, device=DEVICE)
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def round_inputs(K: int, C: int, d: int, dtype, seed: int):
+    """Inputs shaped as the main path makes them: row-stochastic Ã and B̃
+    (the normalized phase weights), a membership-like downlink M, unit
+    normal signals and small receiver noise."""
+    g = torch.Generator(DEVICE).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=DEVICE)
+
+    a = rand(C, K)
+    b = rand(C, C)
+    m = torch.nn.functional.one_hot(
+        torch.randint(C, (K,), generator=g, device=DEVICE), C).float()
+    s = torch.randn(K, d, generator=g, device=DEVICE).to(dtype)
+    n1 = 1e-2 * torch.randn(C, d, generator=g, device=DEVICE)
+    n2 = 1e-2 * torch.randn(C, d, generator=g, device=DEVICE)
+    return (s, a / a.sum(1, keepdim=True), n1, b / b.sum(1, keepdim=True),
+            n2, m)
+
+
+def kernel_phase(kmod, ref_fn, name: str):
+    """cwfl_round against its plain version; returns the main-shape row
+    of the kernels summary (without its launch count)."""
+    shapes = [("main", 50, 3, 184214, torch.float32),
+              ("ragged", 16, 4, 2049, torch.float32),
+              ("tiny", 1, 1, 700, torch.float32),
+              ("main_bf16", 50, 3, 184214, torch.bfloat16)]
+    row = None
+    for label, K, C, d, dtype in shapes:
+        args = round_inputs(K, C, d, dtype, seed=K + C + d)
+        new, cons = kmod.cwfl_round(*args)
+        ref_new, ref_cons = ref_fn(*args)
+        torch.cuda.synchronize()
+        assert new.dtype == dtype and new.shape == (K, d)
+        assert cons.dtype == torch.float32 and cons.shape == (d,)
+        diff = (new.float() - ref_new.float()).abs()
+        err_new, err_cons = float(diff.max()), float(
+            (cons - ref_cons).abs().max())
+        if dtype == torch.float32:
+            ok_new = err_new <= F32_ATOL
+            tol_new = f"abs {F32_ATOL}"
+        else:
+            ok_new = bool(torch.all(
+                diff <= BF16_ULP_REL * ref_new.float().abs() + F32_ATOL))
+            tol_new = f"one bf16 ulp (2^-7 rel) + abs {F32_ATOL}"
+        line = {"phase": "kernel", "kernel": name, "shape": label,
+                "K": K, "C": C, "d": d, "dtype": str(dtype),
+                "max_abs_err_new": err_new, "tol_new": tol_new,
+                "max_abs_err_cons": err_cons, "tol_cons": F32_ATOL}
+        if label == "main":
+            bw, peak = card_peaks(torch.cuda.get_device_name(0))
+            nbytes = (kmod.hbm_bytes_model(K, C, d)["fused_bytes"]
+                      + 4 * (2 * C * K + C * C))
+            flops = d * (2 * C * K + 2 * C * C + 2 * K * C + 3 * C)
+            bound_bytes, bound_ops = nbytes / bw * 1e3, flops / peak * 1e3
+            ms = time_cold(lambda: kmod.cwfl_round(*args))
+            plain_ms = time_cold(lambda: ref_fn(*args))
+            line.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
+                        bound_ms_bytes=bound_bytes,
+                        bound_ms_operations=bound_ops,
+                        achieved_bytes_per_s=nbytes / (ms * 1e-3))
+            row = {"name": name, "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/cwfl_round.cu",
+                   "replaces": "src/repro/kernels/cwfl_round.py:42",
+                   "launches": None,
+                   "max_abs_err": max(err_new, err_cons),
+                   "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(bound_bytes, bound_ops),
+                   "bound_by": ("bytes" if bound_bytes >= bound_ops
+                                else "operations"),
+                   "library_ms": None}
+        emit(line)
+        if not (ok_new and err_cons <= F32_ATOL):
+            raise AssertionError(f"cwfl_round disagrees with its plain "
+                                 f"version at {label}: {line}")
+    return row
+
+
+def small_workload(device):
+    from repro_torch.core import TopologyConfig, make_topology
+    from repro_torch.data import (SyntheticImageConfig,
+                                  make_synthetic_images, partition_iid)
+
+    K = 8
+    topo = make_topology(7, TopologyConfig(num_clients=K), device="cpu")
+    (xtr, ytr), (xte, yte) = make_synthetic_images(
+        0, SyntheticImageConfig.mnist_like(1920, 256), device="cpu")
+    xs, ys = partition_iid(1, xtr, ytr, K)
+    return topo.to(device), xs.to(device), ys.to(device), xte.to(device), \
+        yte.to(device)
+
+
+def reference_phase():
+    """The slice on the card against the same slice on the CPU, with the
+    same draws (made on the CPU) and data: K=8, hidden 32, 3 rounds."""
+    from repro_torch.models import make_mnist_mlp, nll_loss
+    from repro_torch.sim import TorchDraws
+    from repro_torch.training import FLConfig, run_federated
+    from repro_torch.utils import tree_leaves
+
+    init, apply = make_mnist_mlp(hidden=(32,))
+    loss = lambda p, x, y: nll_loss(apply(p, x), y)   # noqa: E731
+    cfg = FLConfig(rounds=3, eval_samples=256, lr=0.05)
+    runs = {dev: run_federated(init, apply, loss, *small_workload(dev), cfg,
+                               draws=TorchDraws(0, "cpu"), device=dev)
+            for dev in (DEVICE, "cpu")}
+    gpu, cpu = runs[DEVICE], runs["cpu"]
+    loss_rel = max(abs(a / b - 1) for a, b in zip(gpu["train_loss"],
+                                                   cpu["train_loss"]))
+    param_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(gpu["final_params"]), tree_leaves(cpu["final_params"])))
+    acc_err = max(abs(a - b) for a, b in zip(gpu["test_acc"],
+                                            cpu["test_acc"]))
+    line = {"phase": "reference", "train_loss_cuda": gpu["train_loss"],
+            "train_loss_cpu": cpu["train_loss"], "loss_rel_err": loss_rel,
+            "tol_loss_rel": 1e-4, "test_acc_cuda": gpu["test_acc"],
+            "test_acc_cpu": cpu["test_acc"], "acc_abs_err": acc_err,
+            "tol_acc_abs": 2 / 256, "param_abs_err": param_err,
+            "tol_param_abs": 1e-4}
+    emit(line)
+    if not (loss_rel <= 1e-4 and acc_err <= 2 / 256 and param_err <= 1e-4):
+        raise AssertionError(f"the slice on the card disagrees with the "
+                             f"CPU: {line}")
+
+
+def full_width_workload():
+    """The paper's MNIST setting: K=50 clients, the 784-200-100-64-10 MLP,
+    the 60,000/10,000 mnist-like set split IID, and a 50-client topology."""
+    from repro_torch.core import TopologyConfig, make_topology
+    from repro_torch.data import (SyntheticImageConfig,
+                                  make_synthetic_images, partition_iid)
+    from repro_torch.models import make_mnist_mlp, nll_loss
+
+    K = 50
+    topo = make_topology(0, TopologyConfig(num_clients=K), device=DEVICE)
+    (xtr, ytr), (xte, yte) = make_synthetic_images(
+        1, SyntheticImageConfig.mnist_like(), device=DEVICE)
+    xs, ys = partition_iid(2, xtr, ytr, K)
+    init, apply = make_mnist_mlp(hidden=(200, 100, 64))
+    loss = lambda p, x, y: nll_loss(apply(p, x), y)   # noqa: E731
+    return init, apply, loss, topo, xs, ys, xte, yte
+
+
+def slice_phase(kmod, rounds: int = 5):
+    """run_federated at the paper's MNIST width on the card."""
+    from repro_torch.training import FLConfig, run_federated
+    from repro_torch.utils import tree_size
+
+    t0 = time.perf_counter()
+    init, apply, loss, topo, xs, ys, xte, yte = full_width_workload()
+    K = int(xs.shape[0])
+    cfg = FLConfig(rounds=rounds, num_clusters=3, snr_db=40.0, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    stamps = []
+
+    def progress(r, l, a):
+        stamps.append(time.perf_counter())
+        emit({"phase": "slice", "round": r, "train_loss": l, "test_acc": a})
+
+    torch.cuda.reset_peak_memory_stats()
+    kmod.launches = 0
+    t0 = time.perf_counter()
+    h = run_federated(init, apply, loss, topo, xs, ys, xte, yte, cfg,
+                      progress=progress, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kmod.launches
+
+    d = tree_size(h["final_params"])
+    steady = (stamps[-1] - stamps[0]) / (rounds - 1)
+    line = {"phase": "slice", "K": K, "C": cfg.num_clusters, "d": d,
+            "n_k": int(xs.shape[1]), "rounds": rounds,
+            "data_setup_s": setup_s, "wall_s": wall,
+            "rounds_per_s": rounds / wall,
+            "steady_rounds_per_s": 1.0 / steady,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "cwfl_round_launches": launches,
+            "train_loss": h["train_loss"], "test_acc": h["test_acc"]}
+    emit(line)
+    if d != 184214:
+        raise AssertionError(f"flat dimension {d}, expected 184214")
+    if launches != rounds:
+        raise AssertionError(f"cwfl_round launched {launches} times in "
+                             f"{rounds} rounds")
+    if not all(math.isfinite(x) for x in h["train_loss"]):
+        raise AssertionError(f"non-finite train loss {h['train_loss']}")
+    if not h["train_loss"][-1] < h["train_loss"][0]:
+        raise AssertionError(f"train loss did not fall: {h['train_loss']}")
+    if not h["test_acc"][-1] >= 0.7:
+        raise AssertionError(f"last-round test accuracy "
+                             f"{h['test_acc'][-1]} < 0.7")
+    return launches
+
+
+def profile_phase(rounds: int = 6):
+    """Where a round's time goes on the card: ``torch.profiler`` over
+    rounds 2..``rounds`` of ``run_federated`` at full width, with the setup
+    and the first round outside its window — device time by kernel,
+    launches per round, and the device's idle share of the window's wall
+    time (under the profiler, which slows the host, and with the host
+    reading each round's loss and accuracy, as the slice phase does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training import FLConfig, run_federated
+
+    workload = full_width_workload()
+    cfg = FLConfig(rounds=rounds, num_clusters=3, snr_db=40.0, seed=0)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def progress(r, loss, acc):
+        torch.cuda.synchronize()
+        if r == 1:
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif r == rounds:
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+
+    run_federated(*workload, cfg, progress=progress, device=DEVICE)
+    n = rounds - 1
+    # Device-side events only: a CPU op's row repeats the time of the
+    # kernels it launched.
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    wall_ms = window["wall_ms"]
+    busy_ms = sum(r[1] for r in rows)
+    round_ms = sum(r[1] for r in rows if "cwfl_round_kernel" in r[0])
+    emit({"phase": "profile", "rounds_in_window": n,
+          "wall_ms_per_round": wall_ms / n,
+          "device_busy_ms_per_round": busy_ms / n,
+          "device_idle_share": 1.0 - busy_ms / wall_ms,
+          "device_launches_per_round": sum(r[2] for r in rows) / n,
+          "cwfl_round_device_ms_per_round": round_ms / n,
+          "top": [[name[:90], ms / n, cnt / n]
+                  for name, ms, cnt in rows[:12]]})
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device; none found")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import cwfl_round as kmod
+    from repro_torch.kernels._build import library_path
+    from repro_torch.kernels.ref import cwfl_round_ref
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    # The JAX reference computes in full f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+          "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
+
+    t0 = time.perf_counter()
+    kmod._library()
+    log = library_path(kmod.SOURCE).with_suffix(".log").read_text()
+    emit({"phase": "build", "kernel": "cwfl_round",
+          "seconds": time.perf_counter() - t0,
+          "library": library_path(kmod.SOURCE).name,
+          "ptxas": [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+
+    row = kernel_phase(kmod, cwfl_round_ref, "cwfl_round")
+    reference_phase()
+    row["launches"] = slice_phase(kmod)
+    profile_phase()
+
+    print(smi, flush=True)
+    emit({"kernels": [row]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

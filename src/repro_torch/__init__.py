@@ -1,0 +1,12 @@
+"""repro_torch — the PyTorch/CUDA port of the CWFL reproduction.
+
+A twin of the JAX package ``repro`` (which stays the reference): the same
+sub-package layout, the same parameter layout and names, plain functions
+on tensors and small dataclasses.  Every random draw comes from an
+explicit ``torch.Generator``; every entry point takes ``device=None``,
+which means the GPU.  The fused CWFL round runs as a hand-written Hopper
+kernel (`repro_torch.kernels.cwfl_round`).
+
+This package imports ``torch`` and never ``jax`` or ``repro``;
+`repro_torch.convert` carries arrays across from the reference as numpy.
+"""

@@ -1,0 +1,212 @@
+"""CWFL: the paper's 3-phase clustered over-the-air aggregation (Algorithm 1).
+
+Port of `repro.core.cwfl`, flat path only.  Operates on K-stacked
+parameter trees (every leaf has a leading client axis K) that are packed
+once into a ``(K, d)`` f32 matrix and sent through the fused round
+(`repro_torch.kernels.cwfl_round`):
+
+  1. intra-cluster OTA MAC:  θ̃_c = Σ_{k∈K_c} p_k θ_k + θ_{v,c} + w̃_c   (eq. 8)
+  2. inter-head consensus:   θ̄_c = Σ_j W(c,j)(θ̃_j + ṽ_j) + θ̃_c        (eq. 9 / lemma 2)
+  3. broadcast:              θ_k ← θ̄_{c(k)}  (error-free downlink)
+
+Each phase's weights are renormalized into a convex combination (the
+literal equations have total weight > 1 and diverge when iterated), and
+the phase-1 amplitudes carry eq. (5)'s norm-limiting precoding: the JAX
+package's defaults, the only mode this slice runs.  The round's noise
+comes in as two ``(C, d)`` matrices of unit normals, which this module
+scales by the phase-1 and phase-2 receiver stds — JAX draws
+``std[:, None] * normal(key, ...)`` per leaf, so unit normals passed in
+reproduce its noise exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core import channel as ch
+from repro_torch.core import clustering as cl
+from repro_torch.core.topology import Topology
+from repro_torch.kernels.cwfl_round import cwfl_round
+from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class CWFLConfig:
+    num_clusters: int = 3
+    snr_db: Optional[float] = None  # override topology noise to hit overall SNR
+
+
+@dataclasses.dataclass(frozen=True)
+class CWFLState:
+    """Everything the aggregation operator needs, precomputed offline."""
+
+    plan: cl.ClusterPlan
+    client_power: torch.Tensor        # (K,) water-filled P_k, Σ = P
+    total_power: float                # P
+    head_noise_std: torch.Tensor      # (C,) σ_c (receiver AWGN std, phase 1)
+    consensus_noise_std: torch.Tensor  # (C,) σ on head→head links (phase 2)
+    mix: torch.Tensor                 # (C, C) consensus weights W (diag = 0)
+
+    @property
+    def num_clients(self) -> int:
+        return int(self.client_power.shape[0])
+
+    @property
+    def num_clusters(self) -> int:
+        return self.plan.num_clusters
+
+
+def setup(topology: Topology, cfg: CWFLConfig, first: int) -> CWFLState:
+    """Offline phase: cluster on SNR, water-fill power, build W (paper §IV).
+    ``first`` is K-means' first centre (`clustering._kmeans`)."""
+    plan = cl.make_cluster_plan(topology.link_snr, topology.adjacency,
+                                cfg.num_clusters, first)
+    noise_var = topology.noise_var
+    if cfg.snr_db is not None:
+        noise_var = ch.snr_db_to_noise_var(topology.total_power, cfg.snr_db)
+    return state_from_plan(plan, topology.link_gain,
+                           float(topology.total_power), noise_var)
+
+
+def state_from_plan(plan: cl.ClusterPlan, link_gain: torch.Tensor,
+                    total_power: float, noise_var: float) -> CWFLState:
+    """Water-fill power and budget noise for a given cluster plan."""
+    K = link_gain.shape[0]
+    dev = link_gain.device
+    C = plan.num_clusters
+
+    # Effective member→head channel gains; heads use their mean head→head gain.
+    head_of = plan.heads[plan.assignment]                     # (K,)
+    gain_to_head = torch.abs(link_gain[torch.arange(K, device=dev),
+                                       head_of]) ** 2
+    head_rows = torch.abs(link_gain[plan.heads][:, plan.heads]) ** 2
+    mean_h2h = head_rows.sum() / max(C * (C - 1), 1)
+    is_head = plan.head_mask > 0
+    eff_gain = torch.where(is_head, mean_h2h, gain_to_head) / noise_var
+
+    client_power = ch.water_filling(eff_gain, total_power)
+    sigma = torch.sqrt(torch.tensor(noise_var, dtype=torch.float32,
+                                    device=dev))
+    noise_std = torch.full((C,), 1.0, dtype=torch.float32, device=dev) * sigma
+    return CWFLState(plan=plan, client_power=client_power,
+                     total_power=total_power, head_noise_std=noise_std,
+                     consensus_noise_std=noise_std.clone(),
+                     mix=cl.consensus_weights(plan.cluster_snr))
+
+
+def per_client_mean_sq(stacked) -> torch.Tensor:
+    """(K,) per-channel-use signal power ‖θ_k‖²/d — eq. (5)'s estimator."""
+    leaves, _ = tree_flatten(stacked)
+    sq = sum(torch.sum(torch.square(x.to(torch.float32)).reshape(
+        x.shape[0], -1), dim=1) for x in leaves)
+    d = sum(x[0].numel() for x in leaves)
+    return sq / max(d, 1)
+
+
+def precode_scale(state: CWFLState, mean_sq_norm: torch.Tensor
+                  ) -> torch.Tensor:
+    """Eq. (5) amplitude scale per client, heads exempt (virtual clients
+    whose local contribution never crosses the channel)."""
+    pre = ch.precode_amplitude(state.client_power, mean_sq_norm)
+    return torch.where(state.plan.head_mask > 0, 1.0, pre)
+
+
+def _sqrt32(x: float, device) -> torch.Tensor:
+    """sqrt of a Python float in f32, as ``jnp.sqrt(float)`` computes it."""
+    return torch.sqrt(torch.tensor(x, dtype=torch.float32, device=device))
+
+
+def phase1_weights(state: CWFLState) -> torch.Tensor:
+    """(C, K) OTA weights: p_k = sqrt(P_k/P) for members, 1 for the head's
+    virtual client (noiseless local contribution)."""
+    p = torch.sqrt(state.client_power / state.total_power)
+    w_k = torch.where(state.plan.head_mask > 0, 1.0, p)
+    return state.plan.membership * w_k[None, :]
+
+
+def phase2_weights(state: CWFLState):
+    """(C, C) inter-head mix B = W + I and (C,) equivalent per-receiver
+    noise std κ_c = sqrt(Σ_j W(c,j)²)·σ̃ (eq. 9 / lemma 2), both divided by
+    the row sums of B."""
+    dev = state.mix.device
+    b = state.mix + torch.eye(state.num_clusters, device=dev)
+    eff_std2 = (state.consensus_noise_std
+                / _sqrt32(state.total_power, dev))
+    kappa = torch.sqrt(torch.sum(state.mix ** 2, dim=1)) * eff_std2
+    row_sums = b.sum(dim=1, keepdim=True)
+    return b / row_sums, kappa / row_sums[:, 0]
+
+
+def round_coefficients(state: CWFLState, stacked_params):
+    """The weight set of one sync round: ``(Ã, eff_std1, B̃, κ, M)`` — the
+    precoded, renormalized phase-1 amplitudes with their receiver noise
+    std, the consensus mix with its equivalent noise std, and the phase-3
+    downlink matrix.  The eq. (5) amplitude clip is estimated from the
+    transmitted signals' power, ``stacked_params``."""
+    A = phase1_weights(state)
+    A = A * precode_scale(state, per_client_mean_sq(stacked_params))[None, :]
+
+    # Receiver scaling (eq. 8): AWGN std σ_c/sqrt(P); weights and noise are
+    # both divided by the phase-1 row sums.
+    eff_std1 = state.head_noise_std / _sqrt32(state.total_power, A.device)
+    rows = torch.clamp(A.sum(dim=1, keepdim=True), min=1e-12)
+    B, kappa = phase2_weights(state)
+    return A / rows, eff_std1 / rows[:, 0], B, kappa, state.plan.membership.T
+
+
+def _flat_pack(leaves, rows: int) -> torch.Tensor:
+    """K-stacked leaves -> one f32 ``(rows, d)`` matrix (leaf order)."""
+    return torch.cat([x.reshape(rows, -1).to(torch.float32) for x in leaves],
+                     dim=1)
+
+
+def _flat_unpack(new_flat: torch.Tensor, cons_flat: torch.Tensor,
+                 leaves, treedef, rows: int):
+    """Inverse of :func:`_flat_pack` for the round's two outputs."""
+    new_leaves, cons_leaves, off = [], [], 0
+    for x in leaves:
+        n = math.prod(x.shape[1:])
+        new_leaves.append(new_flat[:, off:off + n].reshape(x.shape)
+                          .to(x.dtype))
+        cons_leaves.append(cons_flat[off:off + n].reshape(x.shape[1:])
+                           .to(x.dtype))
+        off += n
+    return (tree_unflatten(treedef, new_leaves),
+            tree_unflatten(treedef, cons_leaves))
+
+
+def _aggregate_flat(stacked_params, state: CWFLState, noise):
+    """One (K, d) matrix through the fused round kernel."""
+    leaves, treedef = tree_flatten(stacked_params)
+    K = leaves[0].shape[0]
+    A, eff_std1, B, kappa, m_back = round_coefficients(state, stacked_params)
+    unit1, unit2 = noise
+    flat = _flat_pack(leaves, K)
+    new_flat, cons_flat = cwfl_round(flat, A, eff_std1[:, None] * unit1, B,
+                                     kappa[:, None] * unit2, m_back)
+    return _flat_unpack(new_flat, cons_flat, leaves, treedef, K)
+
+
+def aggregate(stacked_params, state: CWFLState, noise):
+    """One CWFL sync round.  Returns ``(new_stacked_params, consensus)``.
+
+    ``stacked_params``: parameter tree, every leaf (K, ...) f32.
+    ``noise``: ``(unit1, unit2)``, two (C, d) f32 matrices of unit normals
+      for phase 1 and phase 2, columns in the flat leaf order.
+    """
+    for x in tree_flatten(stacked_params)[0]:
+        if x.dtype != torch.float32:
+            raise TypeError(f"the flat round takes f32 leaves, got {x.dtype}")
+    return _aggregate_flat(stacked_params, state, noise)
+
+
+def channel_uses_per_round(num_clients: int, num_clusters: int) -> dict:
+    """The paper's §IV efficiency comparison for one (K, C) point: CWFL's
+    C(C−1) consensus uses + C OTA slots, vs K(K−1) for fully-decentralized
+    consensus, vs 1 for a single-server OTA MAC."""
+    C, K = num_clusters, num_clients
+    return {"cwfl": C * (C - 1) + C, "decentralized": K * (K - 1),
+            "server_ota": 1}

@@ -1,0 +1,61 @@
+"""Build a kernel source with ``nvcc`` into a shared library and load it.
+
+Each ``csrc/*.cu`` file exports a plain C interface and is compiled for
+Hopper (``sm_90a``) at first use into ``build/torch_kernels/`` at the root
+of the checkout.  The library's name carries a hash of the source and the
+flags, so an edited source is rebuilt.  Nothing here runs at import time:
+the CPU has no ``nvcc``, and the CPU route never builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin); "
+            "the CUDA kernels are built on a machine with the CUDA toolkit")
+    return nvcc
+
+
+def library_path(source: Path) -> Path:
+    """Where ``source``'s library lives: ``<stem>-<hash>.so``."""
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """Load ``source``'s library, compiling it first if it is not built.
+    The compiler's report (``-Xptxas -v``: registers, spills) is kept
+    beside the library as ``<name>.log``."""
+    path = library_path(source)
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source.name}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, path)   # atomic: a concurrent loader sees all or nothing
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return ctypes.CDLL(str(path))

@@ -1,0 +1,4 @@
+"""repro_torch.strategies — the aggregation-strategy registry."""
+from repro_torch.strategies.base import (Strategy, available_strategies,
+                                         get_strategy, register_strategy)
+from repro_torch.strategies.builtin import CWFLStrategy

@@ -1,0 +1,2 @@
+from repro_torch.training.local import make_local_runner
+from repro_torch.training.federated import FLConfig, run_federated

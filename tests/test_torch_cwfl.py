@@ -1,0 +1,140 @@
+"""The port's CWFL round (coefficients, flat packing, aggregate) against
+`repro.core.cwfl` on identical states, params and noise.  The unit normals
+are rebuilt from the JAX key with JAX's own splits (`repro/core/cwfl.py`
+``_aggregate_flat``: ``k1, k2 = split(key)``, then ``_flat_leaf_noise``
+per leaf with unit std)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import cwfl as jcwfl
+from repro.core import topology as jtopo
+from repro_torch.convert import params_from_jax, plan_from_arrays
+from repro_torch.core import cwfl as tcwfl
+from repro_torch.utils.pytree import tree_flatten, tree_leaves
+
+# f32 sums in another order than XLA's (the flat round, the mean-square
+# power estimate): the JAX kernel itself drifts 1.9e-6 from its oracle.
+ATOL = 1e-5
+K, C = 8, 3
+
+
+@pytest.fixture(scope="module", params=[7, 9], ids=["topo7", "topo9"])
+def states(request):
+    topo = jtopo.make_topology(jax.random.PRNGKey(request.param),
+                               jtopo.TopologyConfig(num_clients=K))
+    jstate = jcwfl.setup(topo, jcwfl.CWFLConfig(num_clusters=C, snr_db=40.0),
+                         jax.random.PRNGKey(3))
+    p = jstate.plan
+    plan = plan_from_arrays(*(np.asarray(x) for x in (
+        p.assignment, p.heads, p.membership, p.cluster_snr, p.head_mask)),
+        device="cpu")
+    tstate = tcwfl.CWFLState(
+        plan=plan, total_power=jstate.total_power,
+        **{name: torch.from_numpy(np.array(getattr(jstate, name)))
+           for name in ("client_power", "head_noise_std",
+                        "consensus_noise_std", "mix")})
+    return jstate, tstate
+
+
+def _stacked(scale, seed=0):
+    """A K-stacked MLP-shaped tree; keys include fc10 so that the sorted
+    leaf order (fc0, fc1, fc10, fc2) differs from the numeric one."""
+    rng = np.random.default_rng(seed)
+    shapes = {"fc0": (12, 8), "fc1": (8, 6), "fc2": (6, 5), "fc10": (5, 4)}
+    return {name: {"w": (scale * rng.standard_normal((K,) + s)).astype(
+                        np.float32),
+                   "b": (scale * rng.standard_normal((K, s[1]))).astype(
+                       np.float32)}
+            for name, s in shapes.items()}
+
+
+def _unit_noise(key, stacked):
+    leaves = jax.tree.leaves(stacked)
+    k1, k2 = jax.random.split(key)
+    ones = jnp.ones((C,), jnp.float32)
+    return tuple(torch.from_numpy(np.array(
+        jcwfl._flat_leaf_noise(k, leaves, C, ones))) for k in (k1, k2))
+
+
+def test_flat_pack_uses_jax_leaf_order():
+    stacked = _stacked(1.0)
+    leaves, treedef = tree_flatten(params_from_jax(stacked, device="cpu"))
+    ref = [np.asarray(x) for x in jax.tree.leaves(stacked)]
+    assert [tuple(x.shape) for x in leaves] == [x.shape for x in ref]
+    flat = tcwfl._flat_pack(leaves, K)
+    np.testing.assert_array_equal(
+        flat.numpy(), np.asarray(jcwfl._flat_pack(jax.tree.leaves(stacked),
+                                                  K)))
+    new, cons = tcwfl._flat_unpack(flat, flat[0], leaves, treedef, K)
+    for a, b in zip(tree_leaves(new), leaves):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(cons), leaves):
+        assert torch.equal(a, b[0])
+
+
+@pytest.mark.parametrize("scale", [0.1, 3.0], ids=["unclipped", "clipped"])
+def test_round_coefficients_match_jax(states, scale):
+    jstate, tstate = states
+    stacked = _stacked(scale)
+    ref = jcwfl.round_coefficients(jstate, jax.tree.map(jnp.asarray, stacked))
+    got = tcwfl.round_coefficients(tstate,
+                                   params_from_jax(stacked, device="cpu"))
+    for name, a, b in zip(("A", "eff_std1", "B", "kappa", "M"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+
+
+def test_phase2_weights_match_jax(states):
+    jstate, tstate = states
+    for a, b in zip(tcwfl.phase2_weights(tstate),
+                    jcwfl.phase2_weights(jstate)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+
+@pytest.mark.parametrize("scale", [0.1, 3.0], ids=["unclipped", "clipped"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_aggregate_matches_jax(states, scale, seed):
+    jstate, tstate = states
+    stacked = _stacked(scale, seed)
+    key = jax.random.PRNGKey(100 + seed)
+    ref_new, ref_cons = jcwfl.aggregate(jax.tree.map(jnp.asarray, stacked),
+                                        jstate, key)
+    new, cons = tcwfl.aggregate(params_from_jax(stacked, device="cpu"),
+                                tstate, _unit_noise(key, stacked))
+    for a, b in zip(tree_leaves(new) + tree_leaves(cons),
+                    jax.tree.leaves(ref_new) + jax.tree.leaves(ref_cons)):
+        assert tuple(a.shape) == b.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=0)
+
+
+def test_aggregate_rejects_non_f32_leaves(states):
+    _, tstate = states
+    stacked = params_from_jax(_stacked(0.1), device="cpu")
+    stacked["fc0"]["w"] = stacked["fc0"]["w"].to(torch.bfloat16)
+    d = sum(x[0].numel() for x in tree_leaves(stacked))
+    with pytest.raises(TypeError):
+        tcwfl.aggregate(stacked, tstate, (torch.zeros(C, d),
+                                          torch.zeros(C, d)))
+
+
+@pytest.mark.parametrize("num_clients,num_clusters", [(50, 3), (16, 4)])
+def test_channel_uses_match_jax(num_clients, num_clusters):
+    assert tcwfl.channel_uses_per_round(num_clients, num_clusters) == (
+        jcwfl.channel_uses_per_round(num_clients, num_clusters))
+
+
+def test_strategy_registry_resolves_cwfl():
+    from repro_torch.strategies import (CWFLStrategy, available_strategies,
+                                        get_strategy, register_strategy)
+    assert "cwfl" in available_strategies()
+    strategy = get_strategy("cwfl")
+    assert isinstance(strategy, CWFLStrategy)
+    assert get_strategy(strategy) is strategy
+    with pytest.raises(KeyError, match="cwfl"):
+        get_strategy("no-such-strategy")
+    with pytest.raises(ValueError):
+        register_strategy("cwfl", CWFLStrategy(name="cwfl"))

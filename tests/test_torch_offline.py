@@ -1,0 +1,195 @@
+"""The port's offline phase (topology, channel, clustering, CWFL state)
+against the JAX package, fed the JAX topology's arrays.  The JAX calls are
+jitted only to compile once instead of op by op."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import channel as jch
+from repro.core import clustering as jcl
+from repro.core import cwfl as jcwfl
+from repro.core import topology as jtopo
+from repro_torch.convert import plan_from_arrays, topology_from_arrays
+from repro_torch.core import channel as tch
+from repro_torch.core import clustering as tcl
+from repro_torch.core import cwfl as tcwfl
+from repro_torch.core import topology as ttopo
+
+# f32 transcendental (log10, pow, sqrt) and sum-order differences between
+# XLA and ATen on the CPU: a few ulp, relative.
+RTOL = 1e-5
+
+
+def _t(x, dtype=None):
+    return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_topology_arrays(key, cfg):
+    t = jtopo.make_topology(key, cfg)
+    return t.positions, t.link_gain, t.link_snr, t.adjacency
+
+
+_jax_cluster_plan = jax.jit(jcl.make_cluster_plan, static_argnums=2)
+
+
+@pytest.fixture(scope="module", params=[(16, 7), (50, 0)],
+                ids=["K16", "K50"])
+def world(request):
+    K, seed = request.param
+    cfg = jtopo.TopologyConfig(num_clients=K)
+    topo = jtopo.Topology(
+        *_jax_topology_arrays(jax.random.PRNGKey(seed), cfg),
+        noise_var=cfg.noise_var, total_power=cfg.total_power)
+    tcfg = ttopo.TopologyConfig(num_clients=K)
+    ttop = topology_from_arrays(np.asarray(topo.positions),
+                                np.asarray(topo.link_gain), tcfg,
+                                device="cpu")
+    return cfg, topo, tcfg, ttop
+
+
+def test_pathloss_and_link_stats_match_jax(world):
+    cfg, topo, tcfg, ttop = world
+    np.testing.assert_allclose(
+        ttopo.pathloss_amplitude(ttop.positions, tcfg).numpy(),
+        np.asarray(jtopo.pathloss_amplitude(topo.positions, cfg)), rtol=RTOL)
+    np.testing.assert_allclose(ttop.link_snr.numpy(),
+                               np.asarray(topo.link_snr), rtol=RTOL)
+    np.testing.assert_array_equal(ttop.adjacency.numpy(),
+                                  np.asarray(topo.adjacency))
+
+
+@pytest.mark.parametrize("total_power", [1e4, 3.0])
+def test_water_filling_matches_jax(total_power):
+    gains = np.random.default_rng(3).lognormal(0.0, 2.0, 24).astype(
+        np.float32)
+    gains[5] = 0.0          # clamped at 1e-12: no water for this client
+    p = tch.water_filling(_t(gains), total_power).numpy()
+    ref = np.asarray(jch.water_filling(jnp.asarray(gains), total_power))
+    np.testing.assert_allclose(p, ref, rtol=RTOL, atol=1e-6 * total_power)
+    np.testing.assert_allclose(p.sum(), total_power, rtol=RTOL)
+
+
+def test_precoding_and_noise_budget_match_jax():
+    rng = np.random.default_rng(4)
+    p_k = rng.uniform(0.1, 10.0, 12).astype(np.float32)
+    msq = rng.uniform(0.0, 5.0, 12).astype(np.float32)
+    np.testing.assert_allclose(
+        tch.precode_amplitude(_t(p_k), _t(msq)).numpy(),
+        np.asarray(jch.precode_amplitude(jnp.asarray(p_k), jnp.asarray(msq))),
+        rtol=RTOL)
+    assert tch.snr_db_to_noise_var(1e4, 40.0) == jch.snr_db_to_noise_var(
+        1e4, 40.0)
+
+
+@pytest.mark.parametrize("num_clusters", [2, 3, 5])
+def test_cluster_plan_matches_jax(world, num_clusters):
+    """Given JAX's first K-means pick, the plan is the same plan."""
+    cfg, topo, tcfg, ttop = world
+    K = cfg.num_clients
+    key = jax.random.PRNGKey(11)
+    first = int(jax.random.randint(key, (), 0, K))
+    ref = _jax_cluster_plan(topo.link_snr, topo.adjacency, num_clusters, key)
+    plan = tcl.make_cluster_plan(ttop.link_snr, ttop.adjacency, num_clusters,
+                                 first)
+    np.testing.assert_array_equal(plan.assignment.numpy(),
+                                  np.asarray(ref.assignment))
+    np.testing.assert_array_equal(plan.heads.numpy(), np.asarray(ref.heads))
+    np.testing.assert_array_equal(plan.membership.numpy(),
+                                  np.asarray(ref.membership))
+    np.testing.assert_array_equal(plan.head_mask.numpy(),
+                                  np.asarray(ref.head_mask))
+    np.testing.assert_allclose(plan.cluster_snr.numpy(),
+                               np.asarray(ref.cluster_snr), rtol=RTOL)
+
+
+@pytest.mark.parametrize("seed,num_clusters,members,jax_head", [
+    (7, 3, (11, 14), 11), (4, 5, (0, 13), 13)],
+    ids=["jax-lower", "jax-higher"])
+def test_two_member_cluster_elects_its_lower_index(seed, num_clusters,
+                                                   members, jax_head):
+    """A two-member cluster's members tie for head in exact arithmetic.
+    The port always elects the lower index; JAX's f32 rounding decides,
+    and at the second case it elects the higher one.  The rest of the
+    plan agrees."""
+    K = 16
+    cfg = jtopo.TopologyConfig(num_clients=K)
+    pos, gain, snr, adj = _jax_topology_arrays(jax.random.PRNGKey(seed), cfg)
+    ttop = topology_from_arrays(np.asarray(pos), np.asarray(gain),
+                                ttopo.TopologyConfig(num_clients=K),
+                                device="cpu")
+    key = jax.random.PRNGKey(11)
+    ref = _jax_cluster_plan(snr, adj, num_clusters, key)
+    plan = tcl.make_cluster_plan(ttop.link_snr, ttop.adjacency, num_clusters,
+                                 int(jax.random.randint(key, (), 0, K)))
+    np.testing.assert_array_equal(plan.assignment.numpy(),
+                                  np.asarray(ref.assignment))
+    c = int(np.asarray(ref.assignment)[members[0]])
+    assert tuple(np.flatnonzero(np.asarray(ref.assignment) == c)) == members
+    assert int(np.asarray(ref.heads)[c]) == jax_head
+    assert int(plan.heads[c]) == members[0]
+    others = np.arange(num_clusters) != c
+    np.testing.assert_array_equal(plan.heads.numpy()[others],
+                                  np.asarray(ref.heads)[others])
+
+
+def test_consensus_weights_match_jax():
+    xi = np.array([3.0, 0.5, 120.0, 7.0], np.float32)
+    np.testing.assert_allclose(
+        tcl.consensus_weights(_t(xi)).numpy(),
+        np.asarray(jcl.consensus_weights(jnp.asarray(xi))), rtol=RTOL)
+
+
+def test_state_from_plan_matches_jax(world):
+    cfg, topo, tcfg, ttop = world
+    ref_plan = _jax_cluster_plan(topo.link_snr, topo.adjacency, 3,
+                                 jax.random.PRNGKey(5))
+    noise_var = jch.snr_db_to_noise_var(cfg.total_power, 40.0)
+    ref = jcwfl.state_from_plan(ref_plan, topo.link_gain,
+                                float(topo.total_power), noise_var)
+    plan = plan_from_arrays(*(np.asarray(x) for x in (
+        ref_plan.assignment, ref_plan.heads, ref_plan.membership,
+        ref_plan.cluster_snr, ref_plan.head_mask)), device="cpu")
+    state = tcwfl.state_from_plan(plan, ttop.link_gain,
+                                  float(ttop.total_power), noise_var)
+    assert state.total_power == ref.total_power
+    for name in ("client_power", "head_noise_std", "consensus_noise_std",
+                 "mix"):
+        np.testing.assert_allclose(getattr(state, name).numpy(),
+                                   np.asarray(getattr(ref, name)), rtol=RTOL,
+                                   err_msg=name)
+
+
+def test_setup_matches_jax_given_the_first_pick(world):
+    cfg, topo, tcfg, ttop = world
+    key = jax.random.PRNGKey(2)
+    ref = jcwfl.setup(topo, jcwfl.CWFLConfig(num_clusters=3, snr_db=40.0),
+                      key)
+    first = int(jax.random.randint(key, (), 0, cfg.num_clients))
+    state = tcwfl.setup(ttop, tcwfl.CWFLConfig(num_clusters=3, snr_db=40.0),
+                        first)
+    np.testing.assert_array_equal(state.plan.heads.numpy(),
+                                  np.asarray(ref.plan.heads))
+    np.testing.assert_allclose(state.client_power.numpy(),
+                               np.asarray(ref.client_power), rtol=RTOL)
+
+
+def test_make_topology_is_reciprocal_and_seeded():
+    """The port draws its own topology (Philox, not threefry): check the
+    structure JAX's has — conjugate-symmetric complex64 gains with a zero
+    diagonal, a symmetric outage graph — and seed determinism."""
+    cfg = ttopo.TopologyConfig(num_clients=12)
+    a = ttopo.make_topology(3, cfg, device="cpu")
+    b = ttopo.make_topology(3, cfg, device="cpu")
+    assert a.link_gain.dtype == torch.complex64
+    assert a.positions.shape == (12, 2)
+    torch.testing.assert_close(a.link_gain, a.link_gain.T.conj())
+    assert torch.all(torch.diagonal(a.link_gain) == 0)
+    assert torch.equal(a.adjacency, a.adjacency.T)
+    assert torch.equal(a.link_gain, b.link_gain)
+    assert not torch.equal(
+        a.link_gain, ttopo.make_topology(4, cfg, device="cpu").link_gain)
