@@ -11,16 +11,23 @@ Phases, each printed as one JSON object per line:
    in this checkout (into ``build/torch_kernels/``);
 3. kernel — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the main path and a few ragged ones, with its time, the
-   plain version's time and the least time the card could take (its bound);
-4. reference — a small run of the slice on the card against the same run
-   on the CPU, with the same draws;
+   plain version's time and the least time the card could take (its bound):
+   ``cwfl_round`` and its guarded variant ``cwfl_round_guard``, the latter
+   on signals with NaN and ±inf and a dead Ã row;
+4. reference — small runs on the card against the same runs on the CPU,
+   with the same draws: the static slice, ``flaky-clients``, and a
+   dead-cluster run whose faults kill whole clusters;
 5. slice — ``run_federated`` with CWFL on the static scenario at the full
    width of the paper's MNIST model (K=50 clients, C=3 clusters, the
    784-200-100-64-10 MLP, d=184,214) for a few rounds, with every kernel's
    launch count over that run;
-6. profile — the same slice under ``torch.profiler``, its window on the
-   rounds after the first: device time by kernel, launches per round and
-   the device's idle share.
+6. scenario — the same width under ``head-failure``, ``flaky-clients``,
+   ``mobile-fading`` and ``cluster-churn``: each fault round through the
+   guarded kernel and no other, per-round live nodes, heads and mask mass,
+   the test accuracy held to floors derived from the JAX package's runs;
+7. profile — the static slice, then ``head-failure``, under
+   ``torch.profiler``, its window on the rounds after the first: device
+   time by kernel, launches per round and the device's idle share.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -98,9 +105,25 @@ def round_inputs(K: int, C: int, d: int, dtype, seed: int):
             n2, m)
 
 
-def kernel_phase(kmod, ref_fn, name: str):
-    """cwfl_round against its plain version; returns the main-shape row
-    of the kernels summary (without its launch count)."""
+def poison(args, seed: int):
+    """A fault round's inputs: about 1% of S NaN or ±inf, and the last Ã
+    row dead (all zero, its noise left on)."""
+    s, a, n1, b, n2, m = args
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    bad = torch.rand(s.shape, generator=g, device=DEVICE) < 0.01
+    kind = torch.randint(3, s.shape, generator=g, device=DEVICE)
+    vals = torch.tensor([math.nan, math.inf, -math.inf], device=DEVICE)
+    s = torch.where(bad, vals[kind].to(s.dtype), s)
+    a = a.clone()
+    a[-1] = 0.0
+    return s, a, n1, b, n2, m
+
+
+def kernel_phase(kmod, ref_fn, guard: bool = False):
+    """cwfl_round (or its guarded variant, on poisoned inputs) against its
+    plain version; returns the main-shape row of the kernels summary
+    (without its launch count)."""
+    name = "cwfl_round_guard" if guard else "cwfl_round"
     shapes = [("main", 50, 3, 184214, torch.float32),
               ("ragged", 16, 4, 2049, torch.float32),
               ("tiny", 1, 1, 700, torch.float32),
@@ -108,8 +131,10 @@ def kernel_phase(kmod, ref_fn, name: str):
     row = None
     for label, K, C, d, dtype in shapes:
         args = round_inputs(K, C, d, dtype, seed=K + C + d)
-        new, cons = kmod.cwfl_round(*args)
-        ref_new, ref_cons = ref_fn(*args)
+        if guard:
+            args = poison(args, seed=K + C + d)
+        new, cons = kmod.cwfl_round(*args, guard=guard)
+        ref_new, ref_cons = ref_fn(*args, guard=guard)
         torch.cuda.synchronize()
         assert new.dtype == dtype and new.shape == (K, d)
         assert cons.dtype == torch.float32 and cons.shape == (d,)
@@ -123,25 +148,30 @@ def kernel_phase(kmod, ref_fn, name: str):
             ok_new = bool(torch.all(
                 diff <= BF16_ULP_REL * ref_new.float().abs() + F32_ATOL))
             tol_new = f"one bf16 ulp (2^-7 rel) + abs {F32_ATOL}"
+        finite = bool(torch.isfinite(new.float()).all()
+                      and torch.isfinite(cons).all())
         line = {"phase": "kernel", "kernel": name, "shape": label,
                 "K": K, "C": C, "d": d, "dtype": str(dtype),
                 "max_abs_err_new": err_new, "tol_new": tol_new,
-                "max_abs_err_cons": err_cons, "tol_cons": F32_ATOL}
+                "max_abs_err_cons": err_cons, "tol_cons": F32_ATOL,
+                "finite": finite}
         if label == "main":
             bw, peak = card_peaks(torch.cuda.get_device_name(0))
             nbytes = (kmod.hbm_bytes_model(K, C, d)["fused_bytes"]
                       + 4 * (2 * C * K + C * C))
             flops = d * (2 * C * K + 2 * C * C + 2 * K * C + 3 * C)
             bound_bytes, bound_ops = nbytes / bw * 1e3, flops / peak * 1e3
-            ms = time_cold(lambda: kmod.cwfl_round(*args))
-            plain_ms = time_cold(lambda: ref_fn(*args))
+            ms = time_cold(lambda: kmod.cwfl_round(*args, guard=guard))
+            plain_ms = time_cold(lambda: ref_fn(*args, guard=guard))
             line.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
                         bound_ms_bytes=bound_bytes,
                         bound_ms_operations=bound_ops,
                         achieved_bytes_per_s=nbytes / (ms * 1e-3))
             row = {"name": name, "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/cwfl_round.cu",
-                   "replaces": "src/repro/kernels/cwfl_round.py:42",
+                   "replaces": ("src/repro/kernels/cwfl_round.py:124"
+                                if guard else
+                                "src/repro/kernels/cwfl_round.py:42"),
                    "launches": None,
                    "max_abs_err": max(err_new, err_cons),
                    "ms": ms, "plain_ms": plain_ms,
@@ -150,10 +180,19 @@ def kernel_phase(kmod, ref_fn, name: str):
                                 else "operations"),
                    "library_ms": None}
         emit(line)
-        if not (ok_new and err_cons <= F32_ATOL):
-            raise AssertionError(f"cwfl_round disagrees with its plain "
+        if not (ok_new and err_cons <= F32_ATOL and (finite or not guard)):
+            raise AssertionError(f"{name} disagrees with its plain "
                                  f"version at {label}: {line}")
     return row
+
+
+def dead_cluster_scenario():
+    """Crashes frequent and recoveries rare enough that whole clusters die
+    (their Ã rows go to 0)."""
+    from repro_torch.sim import FaultConfig, Scenario
+
+    return Scenario(name="dead-cluster",
+                    faults=FaultConfig(crash_prob=0.6, recover_prob=0.2))
 
 
 def small_workload(device):
@@ -170,9 +209,30 @@ def small_workload(device):
         yte.to(device)
 
 
-def reference_phase():
-    """The slice on the card against the same slice on the CPU, with the
-    same draws (made on the CPU) and data: K=8, hidden 32, 3 rounds."""
+def count_dead_rows(run):
+    """``run()``, with the number of dead Ã rows (Σ|Ã row| = 0: a cluster
+    whose every member failed) that each sync handed the round kernel."""
+    from repro_torch.core import cwfl
+
+    launch, seen = cwfl.cwfl_round, []
+
+    def counting(signals, phase1, *args, **kwargs):
+        seen.append(int((phase1.abs().sum(dim=1) <= 0).sum()))
+        return launch(signals, phase1, *args, **kwargs)
+
+    cwfl.cwfl_round = counting
+    try:
+        return run(), seen
+    finally:
+        cwfl.cwfl_round = launch
+
+
+def reference_phase(label: str, scenario=None, rounds: int = 3,
+                    draws_seed: int = 0):
+    """A small run on the card against the same run on the CPU, with the
+    same draws (made on the CPU) and data: K=8, hidden 32.  Returns the
+    dead Ã rows each round of the card's run handed the kernel."""
+    from repro_torch.core import TopologyConfig
     from repro_torch.models import make_mnist_mlp, nll_loss
     from repro_torch.sim import TorchDraws
     from repro_torch.training import FLConfig, run_federated
@@ -180,10 +240,13 @@ def reference_phase():
 
     init, apply = make_mnist_mlp(hidden=(32,))
     loss = lambda p, x, y: nll_loss(apply(p, x), y)   # noqa: E731
-    cfg = FLConfig(rounds=3, eval_samples=256, lr=0.05)
-    runs = {dev: run_federated(init, apply, loss, *small_workload(dev), cfg,
-                               draws=TorchDraws(0, "cpu"), device=dev)
-            for dev in (DEVICE, "cpu")}
+    cfg = FLConfig(rounds=rounds, eval_samples=256, lr=0.05)
+    runs, dead = {}, {}
+    for dev in (DEVICE, "cpu"):
+        runs[dev], dead[dev] = count_dead_rows(lambda: run_federated(
+            init, apply, loss, *small_workload(dev), cfg,
+            scenario=scenario, topo_cfg=TopologyConfig(num_clients=8),
+            draws=TorchDraws(draws_seed, "cpu"), device=dev))
     gpu, cpu = runs[DEVICE], runs["cpu"]
     loss_rel = max(abs(a / b - 1) for a, b in zip(gpu["train_loss"],
                                                    cpu["train_loss"]))
@@ -191,16 +254,25 @@ def reference_phase():
         tree_leaves(gpu["final_params"]), tree_leaves(cpu["final_params"])))
     acc_err = max(abs(a - b) for a, b in zip(gpu["test_acc"],
                                             cpu["test_acc"]))
-    line = {"phase": "reference", "train_loss_cuda": gpu["train_loss"],
+    line = {"phase": "reference", "run": label,
+            "train_loss_cuda": gpu["train_loss"],
             "train_loss_cpu": cpu["train_loss"], "loss_rel_err": loss_rel,
             "tol_loss_rel": 1e-4, "test_acc_cuda": gpu["test_acc"],
             "test_acc_cpu": cpu["test_acc"], "acc_abs_err": acc_err,
             "tol_acc_abs": 2 / 256, "param_abs_err": param_err,
-            "tol_param_abs": 1e-4}
+            "tol_param_abs": 1e-4, "dead_rows_cuda": dead[DEVICE],
+            "dead_rows_cpu": dead["cpu"],
+            "scenario_cuda": gpu.get("scenario"),
+            "scenario_cpu": cpu.get("scenario")}
     emit(line)
-    if not (loss_rel <= 1e-4 and acc_err <= 2 / 256 and param_err <= 1e-4):
-        raise AssertionError(f"the slice on the card disagrees with the "
-                             f"CPU: {line}")
+    if not all(math.isfinite(x) for x in gpu["train_loss"]):
+        raise AssertionError(f"non-finite train loss on the card: {line}")
+    if not (loss_rel <= 1e-4 and acc_err <= 2 / 256 and param_err <= 1e-4
+            and gpu.get("scenario") == cpu.get("scenario")
+            and dead[DEVICE] == dead["cpu"]):
+        raise AssertionError(f"the {label} run on the card disagrees with "
+                             f"the CPU: {line}")
+    return dead[DEVICE]
 
 
 def full_width_workload():
@@ -240,13 +312,13 @@ def slice_phase(kmod, rounds: int = 5):
         emit({"phase": "slice", "round": r, "train_loss": l, "test_acc": a})
 
     torch.cuda.reset_peak_memory_stats()
-    kmod.launches = 0
+    kmod.launches = kmod.launches_guard = 0
     t0 = time.perf_counter()
     h = run_federated(init, apply, loss, topo, xs, ys, xte, yte, cfg,
                       progress=progress, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kmod.launches
+    launches, launches_guard = kmod.launches, kmod.launches_guard
 
     d = tree_size(h["final_params"])
     steady = (stamps[-1] - stamps[0]) / (rounds - 1)
@@ -257,13 +329,15 @@ def slice_phase(kmod, rounds: int = 5):
             "steady_rounds_per_s": 1.0 / steady,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "cwfl_round_launches": launches,
+            "cwfl_round_guard_launches": launches_guard,
             "train_loss": h["train_loss"], "test_acc": h["test_acc"]}
     emit(line)
     if d != 184214:
         raise AssertionError(f"flat dimension {d}, expected 184214")
-    if launches != rounds:
-        raise AssertionError(f"cwfl_round launched {launches} times in "
-                             f"{rounds} rounds")
+    if launches != rounds or launches_guard != 0:
+        raise AssertionError(f"cwfl_round launched {launches} times and "
+                             f"its guarded variant {launches_guard} in "
+                             f"{rounds} static rounds")
     if not all(math.isfinite(x) for x in h["train_loss"]):
         raise AssertionError(f"non-finite train loss {h['train_loss']}")
     if not h["train_loss"][-1] < h["train_loss"][0]:
@@ -271,19 +345,112 @@ def slice_phase(kmod, rounds: int = 5):
     if not h["test_acc"][-1] >= 0.7:
         raise AssertionError(f"last-round test accuracy "
                              f"{h['test_acc'][-1]} < 0.7")
-    return launches
+    return launches, h["test_acc"]
 
 
-def profile_phase(rounds: int = 6):
+# The scenarios driven at full width.  Their floors come from the JAX
+# package at this configuration on the CPU (scripts/jax_scenario_reference.py
+# --seed S, S = 0, 3, 6, 9):
+# - SCENARIO_FLOOR, the least round-5 test accuracy: the lowest that any of
+#   the four scenarios reaches at round 5 over the four seeds (0.894,
+#   head-failure at S = 3), rounded down; at S = 0, the seeding used here,
+#   they reach 0.970-0.979;
+# - STATIC_GAP, how far a scenario may trail paper-static at the same round:
+#   a scenario run shares the static run's data, initial params, batches
+#   and noise, and over the four seeds JAX's scenarios trail paper-static
+#   by at most 0.006 at a round 4 or 5 that synced; the gap allows five
+#   times that.
+# A round whose mask mass is 0 (a blackout) skips the sync and keeps the
+# last consensus, so its accuracy must equal the round before's; the floors
+# then hold at the last round that synced.
+SCENARIOS = ("head-failure", "flaky-clients", "mobile-fading",
+             "cluster-churn")
+SCENARIO_FLOOR = 0.89
+STATIC_GAP = 0.03
+
+
+def scenario_phase(kmod, static_acc, rounds: int = 5):
+    """run_federated at full width under each dynamic scenario: every sync
+    of a fault scenario launches the guarded kernel and no other, every
+    other scenario's sync the unguarded one; the test accuracy holds the
+    floors above against ``static_acc``, the slice phase's per-round
+    accuracy.  Returns the guarded launches of the fault scenarios'
+    runs."""
+    from repro_torch.core import TopologyConfig
+    from repro_torch.sim import get_scenario
+    from repro_torch.training import FLConfig, run_federated
+
+    workload = full_width_workload()
+    topo_cfg = TopologyConfig(num_clients=int(workload[4].shape[0]))
+    cfg = FLConfig(rounds=rounds, num_clusters=3, snr_db=40.0, seed=0)
+    guarded = 0
+    for name in SCENARIOS:
+        fault = not get_scenario(name).faults.is_trivial
+        stamps = []
+        kmod.launches = kmod.launches_guard = 0
+        t0 = time.perf_counter()
+        h = run_federated(*workload, cfg,
+                          progress=lambda *_: stamps.append(
+                              time.perf_counter()),
+                          scenario=name, topo_cfg=topo_cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, launches_guard = kmod.launches, kmod.launches_guard
+        rec = h["scenario"]
+        for r in range(rounds):
+            emit({"phase": "scenario", "scenario": name, "round": r + 1,
+                  "train_loss": h["train_loss"][r],
+                  "test_acc": h["test_acc"][r], "alive": rec["alive"][r],
+                  "heads": rec["heads"][r],
+                  "mask_mass": rec["mask_mass"][r],
+                  "quarantined": rec["quarantined"][r]})
+        line = {"phase": "scenario", "scenario": name, "rounds": rounds,
+                "wall_s": wall, "rounds_per_s": rounds / wall,
+                "steady_rounds_per_s": (rounds - 1) / (stamps[-1]
+                                                       - stamps[0]),
+                "cwfl_round_launches": launches,
+                "cwfl_round_guard_launches": launches_guard,
+                "train_loss": h["train_loss"], "test_acc": h["test_acc"]}
+        emit(line)
+        want = (0, rounds) if fault else (rounds, 0)
+        if (launches, launches_guard) != want:
+            raise AssertionError(f"{name}: (unguarded, guarded) launches "
+                                 f"{(launches, launches_guard)}, expected "
+                                 f"{want} in {rounds} rounds")
+        if not all(math.isfinite(x) for x in h["train_loss"]):
+            raise AssertionError(f"{name}: non-finite train loss {line}")
+        acc, mass = h["test_acc"], rec["mask_mass"]
+        synced = [r for r in range(rounds) if mass[r] > 0]
+        if not synced:
+            raise AssertionError(f"{name}: no round synced: {mass}")
+        last = synced[-1]
+        if any(acc[r] != acc[last] for r in range(last + 1, rounds)):
+            raise AssertionError(f"{name}: a blackout round after round "
+                                 f"{last + 1} moved the consensus: {acc}")
+        if last == rounds - 1 and not acc[last] >= SCENARIO_FLOOR:
+            raise AssertionError(f"{name}: round-{rounds} test accuracy "
+                                 f"{acc[last]} < {SCENARIO_FLOOR}")
+        if not acc[last] >= static_acc[last] - STATIC_GAP:
+            raise AssertionError(
+                f"{name}: round-{last + 1} test accuracy {acc[last]} trails "
+                f"paper-static's {static_acc[last]} by more than "
+                f"{STATIC_GAP}")
+        guarded += launches_guard
+    return guarded
+
+
+def profile_phase(scenario: str = "paper-static", rounds: int = 6):
     """Where a round's time goes on the card: ``torch.profiler`` over
-    rounds 2..``rounds`` of ``run_federated`` at full width, with the setup
-    and the first round outside its window — device time by kernel,
-    launches per round, and the device's idle share of the window's wall
-    time (under the profiler, which slows the host, and with the host
-    reading each round's loss and accuracy, as the slice phase does)."""
+    rounds 2..``rounds`` of ``run_federated`` at full width under
+    ``scenario``, with the setup and the first round outside its window —
+    device time by kernel, launches per round, and the device's idle share
+    of the window's wall time (under the profiler, which slows the host,
+    and with the host reading each round's loss and accuracy, as the slice
+    phase does)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import TopologyConfig
     from repro_torch.training import FLConfig, run_federated
 
     workload = full_width_workload()
@@ -300,7 +467,8 @@ def profile_phase(rounds: int = 6):
             window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
             prof.stop()
 
-    run_federated(*workload, cfg, progress=progress, device=DEVICE)
+    run_federated(*workload, cfg, progress=progress, scenario=scenario,
+                  topo_cfg=TopologyConfig(num_clients=50), device=DEVICE)
     n = rounds - 1
     # Device-side events only: a CPU op's row repeats the time of the
     # kernels it launched.
@@ -311,7 +479,7 @@ def profile_phase(rounds: int = 6):
     wall_ms = window["wall_ms"]
     busy_ms = sum(r[1] for r in rows)
     round_ms = sum(r[1] for r in rows if "cwfl_round_kernel" in r[0])
-    emit({"phase": "profile", "rounds_in_window": n,
+    emit({"phase": "profile", "scenario": scenario, "rounds_in_window": n,
           "wall_ms_per_round": wall_ms / n,
           "device_busy_ms_per_round": busy_ms / n,
           "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -347,19 +515,29 @@ def main() -> None:
     t0 = time.perf_counter()
     kmod._library()
     log = library_path(kmod.SOURCE).with_suffix(".log").read_text()
-    emit({"phase": "build", "kernel": "cwfl_round",
+    emit({"phase": "build", "kernels": ["cwfl_round", "cwfl_round_guard"],
           "seconds": time.perf_counter() - t0,
           "library": library_path(kmod.SOURCE).name,
+          "instantiations": log.count("Compiling entry function"),
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})
 
-    row = kernel_phase(kmod, cwfl_round_ref, "cwfl_round")
-    reference_phase()
-    row["launches"] = slice_phase(kmod)
+    rows = [kernel_phase(kmod, cwfl_round_ref),
+            kernel_phase(kmod, cwfl_round_ref, guard=True)]
+    reference_phase("paper-static")
+    reference_phase("flaky-clients", "flaky-clients")
+    dead = reference_phase("dead-cluster", dead_cluster_scenario(),
+                           rounds=4)
+    if not any(dead):
+        raise AssertionError(f"the dead-cluster run handed the kernel no "
+                             f"dead row: {dead}")
+    rows[0]["launches"], static_acc = slice_phase(kmod)
+    rows[1]["launches"] = scenario_phase(kmod, static_acc)
     profile_phase()
+    profile_phase("head-failure")
 
     print(smi, flush=True)
-    emit({"kernels": [row]})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,8 +3,7 @@
 Port of `repro.core.clustering`.  Each client's feature is its link-SNR
 profile (dB, outage links floored); K-means groups clients, and the member
 nearest each centroid becomes its cluster-head.  ``argmin``/``argmax``
-return the first occurrence, as JAX's do; the head election departs from
-JAX on ties (see `make_cluster_plan`).
+return the first occurrence, as JAX's do.
 """
 from __future__ import annotations
 
@@ -13,10 +12,6 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-
-# Relative distance within which two cluster members tie for head: a few
-# f32 ulp of a 16..50-term sum of squares.
-_HEAD_TIE_RTOL = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +53,27 @@ def _kmeans(features: torch.Tensor, num_clusters: int, first: int,
     return torch.argmin(d2, dim=1), centroids
 
 
+def _sum_in_xla_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, f32, in the order XLA's CPU reduction takes
+    for a row of n terms: ceil(n/32) blocks of ceil(n/nblocks) terms, each
+    summed in index order, then the block sums in order.  This is XLA's
+    order for n <= 64 and n = 95, 96, 128, 160
+    (`tests/test_torch_offline.py::test_sum_in_xla_order_matches_xla`);
+    for other n above 64 XLA sums in another order, not reproduced here, so
+    a two-member cluster's head may differ from JAX's there (ROADMAP,
+    faults queue)."""
+    n = x.shape[-1]
+    blocks = -(-n // 32)
+    size = -(-n // blocks)
+    total = None
+    for start in range(0, n, size):
+        acc = x[..., start]
+        for i in range(start + 1, min(start + size, n)):
+            acc = acc + x[..., i]
+        total = acc if total is None else total + acc
+    return total
+
+
 def snr_features(link_snr: torch.Tensor, adjacency: torch.Tensor,
                  floor_db: float = -30.0) -> torch.Tensor:
     """Per-client SNR profile features (dB, outage links floored)."""
@@ -70,32 +86,42 @@ def make_cluster_plan(link_snr: torch.Tensor, adjacency: torch.Tensor,
                       num_clusters: int, first: int,
                       kmeans_iters: int = 50) -> ClusterPlan:
     """Full offline clustering: K-means on SNR features → heads → ξ_c."""
-    K = link_snr.shape[0]
+    return _plan_from_features(snr_features(link_snr, adjacency), link_snr,
+                               num_clusters, first, kmeans_iters)
+
+
+def _plan_from_features(feats: torch.Tensor, link_snr: torch.Tensor,
+                        num_clusters: int, first: int,
+                        kmeans_iters: int) -> ClusterPlan:
+    """`make_cluster_plan` given the (K, K) features."""
     C = num_clusters
-    feats = snr_features(link_snr, adjacency)
     assign, centroids = _kmeans(feats, C, first, kmeans_iters)
     clusters = torch.arange(C, device=link_snr.device)
 
-    # Head of cluster c = member closest to centroid c (paper §IV).  A
-    # two-member cluster puts both members at the same distance from its
-    # centroid in exact arithmetic; in f32 the rounding of the features
-    # (log10) and of the sum of squares decides, and ATen rounds otherwise
-    # than XLA.  Here distances within _HEAD_TIE_RTOL of the nearest count
-    # as tied and the lowest index wins, so the choice does not hang on
-    # rounding.  JAX has no such rule: where its rounding favours the
-    # higher index (K=16, topology seed 4, C=5: head 13 of {0, 13}), and on
-    # genuine near-ties closer than _HEAD_TIE_RTOL, the port elects
-    # another head than JAX.
-    d2 = torch.sum((feats[:, None, :] - centroids[None]) ** 2, dim=-1)
+    # Head of cluster c = member closest to centroid c (paper §IV): a plain
+    # argmin, first occurrence, as JAX's.  A two-member cluster puts both
+    # members at the same distance from its centroid in exact arithmetic,
+    # so the f32 rounding of the sum of squares picks the head; the sum is
+    # taken in the order XLA takes it on the CPU (`_sum_in_xla_order`).
+    # Fed JAX's own features, this elects JAX's heads in all 207 plans of
+    # a sweep (K = 8, 16, 50; C = 2, 3, 5; 23 topology seeds).  The port's
+    # own features round log10 otherwise than XLA and agree in fewer
+    # (ROADMAP, faults queue).
+    diff = feats[:, None, :] - centroids[None]
+    d2 = _sum_in_xla_order(diff * diff)
     d2_masked = torch.where(assign[:, None] == clusters[None], d2,
                             torch.inf)
-    nearest = torch.min(d2_masked, dim=0).values
-    tied = d2_masked <= nearest * (1.0 + _HEAD_TIE_RTOL)
-    heads = torch.argmax(tied.to(torch.int32), dim=0)             # (C,)
+    heads = torch.argmin(d2_masked, dim=0)                        # (C,)
 
     membership = (assign[None, :] == clusters[:, None]).to(torch.float32)
+    return _with_heads(assign, membership, heads, link_snr)
 
-    # ξ_c: mean member→head link SNR (excluding the head's zero self-link).
+
+def _with_heads(assignment: torch.Tensor, membership: torch.Tensor,
+                heads: torch.Tensor, link_snr: torch.Tensor) -> ClusterPlan:
+    """The plan of these clusters under these heads: ξ_c is the mean
+    member→head link SNR, excluding the head's zero self-link."""
+    K = link_snr.shape[0]
     snr_to_head = link_snr[heads]                                 # (C, K)
     head_onehot = F.one_hot(heads, K).to(torch.float32)           # (C, K)
     member_not_head = membership * (1.0 - head_onehot)
@@ -104,9 +130,30 @@ def make_cluster_plan(link_snr: torch.Tensor, adjacency: torch.Tensor,
     # Singleton clusters (head only): max SNR (noiseless local aggregate).
     cluster_snr = torch.where(member_not_head.sum(1) > 0, cluster_snr,
                               torch.max(link_snr))
-    return ClusterPlan(assignment=assign, heads=heads, membership=membership,
-                       cluster_snr=cluster_snr,
+    return ClusterPlan(assignment=assignment, heads=heads,
+                       membership=membership, cluster_snr=cluster_snr,
                        head_mask=head_onehot.sum(0))
+
+
+def reelect_heads(plan: ClusterPlan, link_snr: torch.Tensor,
+                  alive: torch.Tensor) -> ClusterPlan:
+    """Head-failure handoff: a cluster whose head is up keeps it; a dead
+    head is replaced by the live member with the largest within-cluster
+    aggregate link SNR Σ_j membership[c,j]·ξ_{k,j} (``argmax``, first
+    occurrence, as JAX's); a fully dead cluster keeps its dead head, which
+    the alive-aware round coefficients make inert
+    (`cwfl.round_coefficients`).  Membership is untouched; ξ_c follows the
+    new heads, by `make_cluster_plan`'s rule."""
+    a = alive.to(torch.float32)
+    score = plan.membership @ link_snr.T                          # (C, K)
+    cand = plan.membership * a[None, :]                           # (C, K)
+    elig = torch.where(cand > 0, score, -torch.inf)
+    new_heads = torch.argmax(elig, dim=1)                         # (C,)
+    any_cand = torch.any(cand > 0, dim=1)
+    keep = a[plan.heads] > 0
+    heads = torch.where(keep, plan.heads,
+                        torch.where(any_cand, new_heads, plan.heads))
+    return _with_heads(plan.assignment, plan.membership, heads, link_snr)
 
 
 def consensus_weights(cluster_snr: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ once into a ``(K, d)`` f32 matrix and sent through the fused round
 Each phase's weights are renormalized into a convex combination (the
 literal equations have total weight > 1 and diverge when iterated), and
 the phase-1 amplitudes carry eq. (5)'s norm-limiting precoding: the JAX
-package's defaults, the only mode this slice runs.  The round's noise
+package's defaults, the only mode the port runs.  A scenario's
+participation mask and a fault scenario's node-up vector fold into the
+round coefficients (`round_coefficients`), and a fault round runs the
+kernel's guarded variant.  The round's noise
 comes in as two ``(C, d)`` matrices of unit normals, which this module
 scales by the phase-1 and phase-2 receiver stds — JAX draws
 ``std[:, None] * normal(key, ...)`` per leaf, so unit normals passed in
@@ -72,8 +75,14 @@ def setup(topology: Topology, cfg: CWFLConfig, first: int) -> CWFLState:
 
 
 def state_from_plan(plan: cl.ClusterPlan, link_gain: torch.Tensor,
-                    total_power: float, noise_var: float) -> CWFLState:
-    """Water-fill power and budget noise for a given cluster plan."""
+                    total_power: float, noise_var: float,
+                    csi_perturb: Optional[torch.Tensor] = None) -> CWFLState:
+    """Water-fill power and budget noise for a given cluster plan (the
+    engine rebuilds it every round of a dynamic scenario).
+
+    ``csi_perturb``: optional (K,) factor on the effective water-filling
+    gains — imperfect CSI at the power allocator (the true channel still
+    carries the signal)."""
     K = link_gain.shape[0]
     dev = link_gain.device
     C = plan.num_clusters
@@ -86,6 +95,8 @@ def state_from_plan(plan: cl.ClusterPlan, link_gain: torch.Tensor,
     mean_h2h = head_rows.sum() / max(C * (C - 1), 1)
     is_head = plan.head_mask > 0
     eff_gain = torch.where(is_head, mean_h2h, gain_to_head) / noise_var
+    if csi_perturb is not None:
+        eff_gain = eff_gain * csi_perturb
 
     client_power = ch.water_filling(eff_gain, total_power)
     sigma = torch.sqrt(torch.tensor(noise_var, dtype=torch.float32,
@@ -127,34 +138,91 @@ def phase1_weights(state: CWFLState) -> torch.Tensor:
     return state.plan.membership * w_k[None, :]
 
 
-def phase2_weights(state: CWFLState):
+def phase2_weights(state: CWFLState,
+                   live: Optional[torch.Tensor] = None):
     """(C, C) inter-head mix B = W + I and (C,) equivalent per-receiver
     noise std κ_c = sqrt(Σ_j W(c,j)²)·σ̃ (eq. 9 / lemma 2), both divided by
-    the row sums of B."""
+    the row sums of B.
+
+    ``live``: optional (C,) bool cluster liveness (fault scenarios).  A
+    dead cluster transmits nothing in phase 2, so its B column is zeroed
+    before the row renormalization, whose row sums are then clamped at
+    1e-12 (an all-dead plan leaves all-zero rows)."""
     dev = state.mix.device
     b = state.mix + torch.eye(state.num_clusters, device=dev)
     eff_std2 = (state.consensus_noise_std
                 / _sqrt32(state.total_power, dev))
-    kappa = torch.sqrt(torch.sum(state.mix ** 2, dim=1)) * eff_std2
+    mix = state.mix
+    if live is not None:
+        lv = live.to(torch.float32)
+        b = b * lv[None, :]
+        mix = mix * lv[None, :]
+    kappa = torch.sqrt(torch.sum(mix ** 2, dim=1)) * eff_std2
     row_sums = b.sum(dim=1, keepdim=True)
+    if live is not None:
+        row_sums = torch.clamp(row_sums, min=1e-12)
     return b / row_sums, kappa / row_sums[:, 0]
 
 
-def round_coefficients(state: CWFLState, stacked_params):
+def participation_weights(state: CWFLState, mask: Optional[torch.Tensor],
+                          alive: Optional[torch.Tensor] = None
+                          ) -> Optional[torch.Tensor]:
+    """(K,) effective participation of one round, or ``None`` if neither a
+    mask nor a node-up vector is given.
+
+    Cluster-heads are forced present: they are the phase-1 receivers and
+    the phase-2 endpoints, so a mask entry of 0 on a head is ignored.  A
+    crashed head (``alive`` 0, fault scenarios) is not forced present:
+    the engine re-elects a surviving head first
+    (`clustering.reelect_heads`)."""
+    if mask is None and alive is None:
+        return None
+    forced = state.plan.head_mask
+    if alive is not None:
+        forced = forced * alive.to(torch.float32)
+    m = (torch.ones_like(forced) if mask is None
+         else mask.to(torch.float32))
+    return torch.where(forced > 0, 1.0, m)
+
+
+def round_coefficients(state: CWFLState, stacked_params,
+                       mask: Optional[torch.Tensor] = None,
+                       alive: Optional[torch.Tensor] = None):
     """The weight set of one sync round: ``(Ã, eff_std1, B̃, κ, M)`` — the
     precoded, renormalized phase-1 amplitudes with their receiver noise
     std, the consensus mix with its equivalent noise std, and the phase-3
     downlink matrix.  The eq. (5) amplitude clip is estimated from the
-    transmitted signals' power, ``stacked_params``."""
+    transmitted signals' power (``stacked_params``).
+
+    ``mask``: optional (K,) {0,1} participation; an absent client gets a
+    zero column in Ã before the row renormalization, so each head's sum is
+    a convex combination of the present members and its noise is
+    renormalized by the same (smaller) row sum.
+    ``alive``: optional (K,) {0,1} node-up vector (fault scenarios).  A
+    cluster with no present transmit mass is dead: its Ã row and its
+    phase-1 noise std are zeroed, and its column leaves B̃
+    (`phase2_weights`)."""
     A = phase1_weights(state)
+    part = participation_weights(state, mask, alive=alive)
+    if part is not None:
+        A = A * part[None, :]
     A = A * precode_scale(state, per_client_mean_sq(stacked_params))[None, :]
 
     # Receiver scaling (eq. 8): AWGN std σ_c/sqrt(P); weights and noise are
     # both divided by the phase-1 row sums.
     eff_std1 = state.head_noise_std / _sqrt32(state.total_power, A.device)
-    rows = torch.clamp(A.sum(dim=1, keepdim=True), min=1e-12)
-    B, kappa = phase2_weights(state)
-    return A / rows, eff_std1 / rows[:, 0], B, kappa, state.plan.membership.T
+    raw = A.sum(dim=1, keepdim=True)
+    rows = torch.clamp(raw, min=1e-12)
+    A = A / rows
+    eff_std1 = eff_std1 / rows[:, 0]
+    if alive is None:
+        B, kappa = phase2_weights(state)
+        return A, eff_std1, B, kappa, state.plan.membership.T
+    dead = raw[:, 0] <= 0.0
+    A = torch.where(dead[:, None], 0.0, A)
+    eff_std1 = torch.where(dead, 0.0, eff_std1)
+    B, kappa = phase2_weights(state, live=~dead)
+    return A, eff_std1, B, kappa, state.plan.membership.T
 
 
 def _flat_pack(leaves, rows: int) -> torch.Tensor:
@@ -178,29 +246,41 @@ def _flat_unpack(new_flat: torch.Tensor, cons_flat: torch.Tensor,
             tree_unflatten(treedef, cons_leaves))
 
 
-def _aggregate_flat(stacked_params, state: CWFLState, noise):
+def _aggregate_flat(stacked_params, state: CWFLState, noise,
+                    mask=None, alive=None):
     """One (K, d) matrix through the fused round kernel."""
     leaves, treedef = tree_flatten(stacked_params)
     K = leaves[0].shape[0]
-    A, eff_std1, B, kappa, m_back = round_coefficients(state, stacked_params)
+    A, eff_std1, B, kappa, m_back = round_coefficients(
+        state, stacked_params, mask=mask, alive=alive)
     unit1, unit2 = noise
     flat = _flat_pack(leaves, K)
     new_flat, cons_flat = cwfl_round(flat, A, eff_std1[:, None] * unit1, B,
-                                     kappa[:, None] * unit2, m_back)
+                                     kappa[:, None] * unit2, m_back,
+                                     guard=alive is not None)
     return _flat_unpack(new_flat, cons_flat, leaves, treedef, K)
 
 
-def aggregate(stacked_params, state: CWFLState, noise):
+def aggregate(stacked_params, state: CWFLState, noise,
+              mask: Optional[torch.Tensor] = None,
+              alive: Optional[torch.Tensor] = None):
     """One CWFL sync round.  Returns ``(new_stacked_params, consensus)``.
 
     ``stacked_params``: parameter tree, every leaf (K, ...) f32.
     ``noise``: ``(unit1, unit2)``, two (C, d) f32 matrices of unit normals
       for phase 1 and phase 2, columns in the flat leaf order.
+    ``mask``, ``alive``: the round's participation and node-up vectors,
+      folded into the coefficients (`round_coefficients`); the transmit
+      side only.  A round given ``alive`` (a fault round) runs the
+      kernel's guarded variant: non-finite signals count as 0, so a
+      quarantined client's poisoned update cannot reach the MAC sum, and
+      dead Ã rows are zeroed with their noise.
     """
     for x in tree_flatten(stacked_params)[0]:
         if x.dtype != torch.float32:
             raise TypeError(f"the flat round takes f32 leaves, got {x.dtype}")
-    return _aggregate_flat(stacked_params, state, noise)
+    return _aggregate_flat(stacked_params, state, noise, mask=mask,
+                           alive=alive)
 
 
 def channel_uses_per_round(num_clients: int, num_clusters: int) -> dict:

@@ -1,8 +1,9 @@
 // The fused CWFL sync round (Algorithm 1) as one Hopper kernel.
 //
-// Replaces the Pallas TPU kernel
-// src/repro/kernels/cwfl_round.py::_cwfl_round_kernel.  For every column j
-// of the flat parameter dimension d:
+// Replaces the Pallas TPU kernels
+// src/repro/kernels/cwfl_round.py::_cwfl_round_kernel and, with the Guard
+// template flag, ::_cwfl_round_kernel_guard.  For every column j of the
+// flat parameter dimension d:
 //
 //   tt[c]    = sum_k A[c,k] * S[k,j] + N1[c,j]     phase 1: OTA MAC   (C,)
 //   tb[c]    = sum_i B[c,i] * tt[i]  + N2[c,j]     phase 2: consensus (C,)
@@ -23,6 +24,14 @@
 // live in registers; all sums run in f32, in index order.  The ragged edge
 // is masked here; nothing is padded.  wgmma, TMA and wider loads are left
 // to later work.
+//
+// The guarded variant (fault scenarios) adds two guards and no traffic:
+// every S load that is not finite becomes 0 before its FMA (0 * NaN = NaN,
+// so a zero amplitude cannot contain a poisoned client), and a row c with
+// sum_k |A[c,k]| <= 0 (a cluster whose every member failed) forces tt[c],
+// its noise included, to 0.  Each block takes the dead flags once from the
+// A it staged in shared memory.  The unguarded instantiations compile to
+// the same code as without the flag.
 //
 // Plain C interface, bound with ctypes (src/repro_torch/kernels/cwfl_round.py):
 // each entry point launches on the given stream and returns
@@ -54,7 +63,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int C>
+template <typename T, int C, bool Guard>
 __global__ void __launch_bounds__(kThreads)
     cwfl_round_kernel(const T* __restrict__ s, const float* __restrict__ a,
                       const float* __restrict__ n1,
@@ -70,6 +79,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < C * C; i += blockDim.x) wb[i] = b[i];
   for (int i = threadIdx.x; i < K * C; i += blockDim.x) wm[i] = m[i];
   __syncthreads();
+  __shared__ bool dead[Guard ? C : 1];
+  if constexpr (Guard) {
+    if (threadIdx.x < C) {
+      float mass = 0.f;
+      for (int k = 0; k < K; ++k) mass += fabsf(wa[threadIdx.x * K + k]);
+      dead[threadIdx.x] = mass <= 0.f;
+    }
+    __syncthreads();
+  }
 
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= d) return;
@@ -80,12 +98,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < C; ++c) tt[c] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
-    const float sk = to_f32(s[static_cast<int64_t>(k) * d + j]);
+    float sk = to_f32(s[static_cast<int64_t>(k) * d + j]);
+    if (Guard && !isfinite(sk)) sk = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) tt[c] = fmaf(wa[c * K + k], sk, tt[c]);
   }
 #pragma unroll
-  for (int c = 0; c < C; ++c) tt[c] += n1[static_cast<int64_t>(c) * d + j];
+  for (int c = 0; c < C; ++c) {
+    tt[c] += n1[static_cast<int64_t>(c) * d + j];
+    if (Guard && dead[c]) tt[c] = 0.f;
+  }
 
   // Phase 2: tb = B tt + N2[:, j]; the consensus is the mean of tb.
   float tb[C];
@@ -110,7 +132,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool Guard>
 int launch(const void* s, const void* a, const void* n1, const void* b,
            const void* n2, const void* m, void* out, void* cons, int K,
            int C, int d, void* stream) {
@@ -128,7 +150,7 @@ int launch(const void* s, const void* a, const void* n1, const void* b,
   switch (C) {
 #define CWFL_CASE(CC)                                                   \
   case CC:                                                              \
-    cwfl_round_kernel<T, CC><<<grid, kThreads, smem, st>>>(             \
+    cwfl_round_kernel<T, CC, Guard><<<grid, kThreads, smem, st>>>(      \
         sp, ap, n1p, bp, n2p, mp, op, cp, K, d);                        \
     break;
     CWFL_CASE(1) CWFL_CASE(2) CWFL_CASE(3) CWFL_CASE(4)
@@ -150,14 +172,30 @@ extern "C" {
 int cwfl_round_f32(const void* s, const void* a, const void* n1,
                    const void* b, const void* n2, const void* m, void* out,
                    void* cons, int K, int C, int d, void* stream) {
-  return launch<float>(s, a, n1, b, n2, m, out, cons, K, C, d, stream);
+  return launch<float, false>(s, a, n1, b, n2, m, out, cons, K, C, d,
+                              stream);
 }
 
 int cwfl_round_bf16(const void* s, const void* a, const void* n1,
                     const void* b, const void* n2, const void* m, void* out,
                     void* cons, int K, int C, int d, void* stream) {
-  return launch<__nv_bfloat16>(s, a, n1, b, n2, m, out, cons, K, C, d,
-                               stream);
+  return launch<__nv_bfloat16, false>(s, a, n1, b, n2, m, out, cons, K, C,
+                                      d, stream);
+}
+
+int cwfl_round_guard_f32(const void* s, const void* a, const void* n1,
+                         const void* b, const void* n2, const void* m,
+                         void* out, void* cons, int K, int C, int d,
+                         void* stream) {
+  return launch<float, true>(s, a, n1, b, n2, m, out, cons, K, C, d, stream);
+}
+
+int cwfl_round_guard_bf16(const void* s, const void* a, const void* n1,
+                          const void* b, const void* n2, const void* m,
+                          void* out, void* cons, int K, int C, int d,
+                          void* stream) {
+  return launch<__nv_bfloat16, true>(s, a, n1, b, n2, m, out, cons, K, C, d,
+                                     stream);
 }
 
 }  // extern "C"

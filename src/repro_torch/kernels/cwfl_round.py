@@ -8,6 +8,10 @@ flat ``(K, d)`` client signals:
     new = M·θ̄             phase 3: error-free broadcast        (K, d)
     consensus = mean_c θ̄                                        (d,)
 
+``guard=True`` (fault scenarios) is the guarded variant, the port of
+``_cwfl_round_kernel_guard``: non-finite signals count as 0, and an Ã row
+with Σ|Ã| = 0 (a dead cluster) forces its θ̃ row, noise included, to 0.
+
 On a CUDA tensor :func:`cwfl_round` launches the kernel in
 ``csrc/cwfl_round.cu`` (built with ``nvcc`` at first use, see
 `repro_torch.kernels._build`) or raises; on a CPU tensor it runs the plain
@@ -37,14 +41,17 @@ MAX_CLUSTERS = 16
 # which a launch gets up to 48 KiB of without an opt-in attribute.
 _MAX_SHARED_BYTES = 48 * 1024
 
-#: Kernel launches so far; raised by one per launch, and nowhere else.
+#: Kernel launches so far, unguarded and guarded; each raised by one per
+#: launch of its variant, and nowhere else.
 launches = 0
+launches_guard = 0
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    for fn in (lib.cwfl_round_f32, lib.cwfl_round_bf16):
+    for fn in (lib.cwfl_round_f32, lib.cwfl_round_bf16,
+               lib.cwfl_round_guard_f32, lib.cwfl_round_guard_bf16):
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -77,7 +84,8 @@ def _check(signals, phase1, noise1, phase2, noise2, broadcast):
 
 def cwfl_round(signals: torch.Tensor, phase1: torch.Tensor,
                noise1: torch.Tensor, phase2: torch.Tensor,
-               noise2: torch.Tensor, broadcast: torch.Tensor):
+               noise2: torch.Tensor, broadcast: torch.Tensor,
+               guard: bool = False):
     """One fused CWFL sync round over flat client signals.
 
     signals: (K, d) client parameter vectors (f32 or bf16; f32 sums).
@@ -86,13 +94,14 @@ def cwfl_round(signals: torch.Tensor, phase1: torch.Tensor,
     phase2:  (C, C) consensus mix B̃.
     noise2:  (C, d) f32 phase-2 equivalent receiver noise.
     broadcast: (K, C) phase-3 downlink matrix (``membership.T``).
+    guard:   the guarded variant (non-finite S → 0, dead Ã rows → 0).
     Returns ``(new (K, d) in signals.dtype, consensus (d,) f32)``.
     """
-    global launches
+    global launches, launches_guard
     _check(signals, phase1, noise1, phase2, noise2, broadcast)
     if signals.device.type == "cpu":
         return cwfl_round_ref(signals, phase1, noise1, phase2, noise2,
-                              broadcast)
+                              broadcast, guard=guard)
     if signals.device.type != "cuda":
         raise ValueError(f"cwfl_round runs on CUDA or the CPU, not "
                          f"{signals.device}")
@@ -117,8 +126,8 @@ def cwfl_round(signals: torch.Tensor, phase1: torch.Tensor,
     new = torch.empty_like(signals)
     cons = torch.empty(d, dtype=torch.float32, device=signals.device)
     lib = _library()
-    fn = (lib.cwfl_round_f32 if signals.dtype == torch.float32
-          else lib.cwfl_round_bf16)
+    fn = getattr(lib, "cwfl_round_" + ("guard_" if guard else "")
+                 + ("f32" if signals.dtype == torch.float32 else "bf16"))
     with torch.cuda.device(signals.device):
         err = fn(signals.data_ptr(), a.data_ptr(), noise1.data_ptr(),
                  b.data_ptr(), noise2.data_ptr(), m.data_ptr(),
@@ -126,8 +135,11 @@ def cwfl_round(signals: torch.Tensor, phase1: torch.Tensor,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"cwfl_round kernel launch failed: CUDA error "
-                           f"{err} (K={K}, C={C}, d={d})")
-    launches += 1
+                           f"{err} (K={K}, C={C}, d={d}, guard={guard})")
+    if guard:
+        launches_guard += 1
+    else:
+        launches += 1
     return new, cons
 
 

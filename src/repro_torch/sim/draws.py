@@ -2,21 +2,29 @@
 
 JAX and torch can never share a random stream (threefry against Philox),
 so everything random that a run consumes comes from a :class:`Draws`
-object: K-means' first centre, the initial params, and each round's
-minibatch indices and phase-1/phase-2 unit normals.  `TorchDraws` draws
-them from ``torch.Generator``s; a test can pass an object that replays the
-JAX package's draws instead.
+object: K-means' first centre, the initial params, each round's minibatch
+indices and phase-1/phase-2 unit normals, and a dynamic scenario's draws
+(channel process, CSI error, schedule, re-clustering, faults).
+`TorchDraws` draws them from ``torch.Generator``s; a test can pass an
+object that replays the JAX package's draws instead.
 
 The streams keep the JAX engine's key structure
 (`repro.sim.engine` ``prepare``): one generator each for the offline
 state, the initial params and the rounds; within a round the local draws
-come before the aggregation's, phase 1 before phase 2.
+come before the aggregation's, phase 1 before phase 2.  The scenario
+draws come from a stream of their own, as JAX folds them out of the run's
+key apart from the rest, so a static run draws what it drew before there
+were scenarios.  The seam hands out uniforms and normals, never decisions:
+the processes decide (`u < p` for a Bernoulli draw) themselves.
 """
 from __future__ import annotations
 
 from typing import Callable, Protocol
 
 import torch
+
+from repro_torch.sim.faults import FaultDraws
+from repro_torch.sim.processes import ChannelDraws
 
 
 class Draws(Protocol):
@@ -34,18 +42,40 @@ class Draws(Protocol):
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Two (C, d) f32 unit-normal matrices: phase 1, phase 2."""
 
+    def channel_init(self, num_clients: int) -> torch.Tensor:
+        """(K, 2) uniforms for the channel process's first waypoints."""
+
+    def channel_step(self, round_: int, num_clients: int) -> ChannelDraws:
+        """The channel step's normals and waypoint uniforms."""
+
+    def csi_normals(self, round_: int, num_clients: int) -> torch.Tensor:
+        """(K,) unit normals of the CSI error."""
+
+    def schedule_uniforms(self, round_: int,
+                          num_clients: int) -> torch.Tensor:
+        """(K,) uniforms of the schedule's dropout."""
+
+    def recluster_first(self, round_: int, num_clients: int) -> int:
+        """The re-clustering K-means' first centre, in [0, num_clients)."""
+
+    def fault_uniforms(self, round_: int, num_clients: int) -> FaultDraws:
+        """The fault chains' six uniform draws."""
+
 
 class TorchDraws:
     """Draws from ``torch.Generator``s on ``device``, seeded from ``seed``:
-    three generators (offline state, initial params, rounds) whose seeds
-    come from a generator seeded with ``seed``."""
+    four generators (offline state, initial params, rounds, scenario)
+    whose seeds come from a generator seeded with ``seed``.  Each is
+    consumed in call order, so the ``round_`` arguments go unused."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
-        seeds = torch.randint(2 ** 62, (3,),
-                              generator=torch.Generator().manual_seed(seed))
+        seeder = torch.Generator().manual_seed(seed)
+        seeds = torch.randint(2 ** 62, (3,), generator=seeder)
         self._state, self._init, self._rounds = (
             torch.Generator(self.device).manual_seed(int(s)) for s in seeds)
+        self._scenario = torch.Generator(self.device).manual_seed(
+            int(torch.randint(2 ** 62, (), generator=seeder)))
 
     def kmeans_first(self, num_clients: int) -> int:
         return int(torch.randint(num_clients, (), generator=self._state,
@@ -64,3 +94,38 @@ class TorchDraws:
         del round_
         return tuple(torch.randn(num_clusters, d, generator=self._rounds,
                                  device=self.device) for _ in range(2))
+
+    def _uniform(self, *shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self._scenario,
+                          device=self.device)
+
+    def _normal(self, *shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self._scenario,
+                           device=self.device)
+
+    def channel_init(self, num_clients: int) -> torch.Tensor:
+        return self._uniform(num_clients, 2)
+
+    def channel_step(self, round_: int, num_clients: int) -> ChannelDraws:
+        K = num_clients
+        return ChannelDraws(fade_re=self._normal(K, K),
+                            fade_im=self._normal(K, K),
+                            shadow=self._normal(K, K),
+                            waypoints=self._uniform(K, 2))
+
+    def csi_normals(self, round_: int, num_clients: int) -> torch.Tensor:
+        return self._normal(num_clients)
+
+    def schedule_uniforms(self, round_: int,
+                          num_clients: int) -> torch.Tensor:
+        return self._uniform(num_clients)
+
+    def recluster_first(self, round_: int, num_clients: int) -> int:
+        return int(torch.randint(num_clients, (), generator=self._scenario,
+                                 device=self.device))
+
+    def fault_uniforms(self, round_: int, num_clients: int) -> FaultDraws:
+        K = num_clients
+        return FaultDraws(crash=self._uniform(K), recover=self._uniform(K),
+                          enter=self._uniform(), leave=self._uniform(),
+                          hit=self._uniform(K), fade=self._uniform())

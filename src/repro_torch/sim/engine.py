@@ -1,4 +1,4 @@
-"""The FL round loop for the static scenario (port of `repro.sim.engine`).
+"""The FL round loop (port of `repro.sim.engine`).
 
 The JAX engine scans rounds on device; here the rounds are a Python loop
 (PyTorch runs eagerly).  One round:
@@ -7,29 +7,41 @@ The JAX engine scans rounds on device; here the rounds are a Python loop
     sync:   strategy aggregation — CWFL through the fused round kernel
     eval:   consensus accuracy on ``x_test[:eval_samples]``
 
+A dynamic scenario (`repro_torch.sim.scenarios`) adds the JAX engine's
+``dynamic_sync`` to the sync (`_Dynamics`): the channel process, the
+participation schedule, the fault plane with its quarantine and
+head-failure handoff, imperfect CSI, periodic re-clustering, the per-round
+state rebuild, and the receive-side fold of a masked round.  The static
+scenario runs the sync alone.
+
 Per-round metrics stay on the device until the run ends, unless a
-``progress`` callback asks for them each round.  Only the static
-``paper-static`` scenario is ported; the scenario processes (fading,
-scheduling, faults, re-clustering) come with a later slice.
+``progress`` callback asks for them each round.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Optional
+import warnings
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.topology import Topology
+from repro_torch.core.channel import snr_db_to_noise_var
+from repro_torch.core.topology import Topology, TopologyConfig
 from repro_torch.models.small import accuracy
 from repro_torch.optim import sgd
 from repro_torch.sim.draws import Draws, TorchDraws
+from repro_torch.sim.faults import init_faults, quarantine_mask, step_faults
+from repro_torch.sim.processes import (ChannelView, channel_view,
+                                       csi_perturbation, init_channel,
+                                       step_channel)
+from repro_torch.sim.scenarios import Scenario, get_scenario
+from repro_torch.sim.scheduling import init_schedule, participation_mask
 from repro_torch.strategies import get_strategy
 from repro_torch.training.local import make_local_runner
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_map, tree_size
-
-STATIC_SCENARIO = "paper-static"
+from repro_torch.utils.pytree import (tree_flatten, tree_map, tree_size,
+                                      tree_unflatten)
 
 
 @contextlib.contextmanager
@@ -47,10 +59,137 @@ def _full_f32():
          torch.backends.cudnn.allow_tf32) = flags
 
 
+def _tree_where(mask: torch.Tensor, a, b):
+    """Per-leaf ``where(mask > 0, a, b)``, ``mask`` indexing each leaf's
+    leading axis (the K clients of a stacked tree, or one entry)."""
+    a_leaves, treedef = tree_flatten(a)
+    b_leaves, _ = tree_flatten(b)
+    return tree_unflatten(treedef, [
+        torch.where(mask.reshape((-1,) + (1,) * (x.ndim - 1)) > 0, x, y)
+        for x, y in zip(a_leaves, b_leaves)])
+
+
+class _Dynamics:
+    """A dynamic scenario's processes over one trajectory, and its sync
+    (the JAX engine's ``dynamic_sync``).  Each round, in JAX's order: the
+    channel step and its view; the schedule's mask; the fault step
+    (``alive``, transmit outages folded into the mask, quarantine); the CSI
+    error; re-clustering every ``recluster_every`` rounds; the head-failure
+    handoff; the state rebuild; the aggregation; the receive-side fold.
+    ``records`` keeps, per round, the live nodes, the mask's mass, the
+    quarantined clients and the heads, on the device."""
+
+    def __init__(self, scenario: Scenario, strategy, topology: Topology,
+                 topo_cfg: Optional[TopologyConfig], cfg, state0,
+                 draws: Draws, device):
+        self.scenario, self.strategy = scenario, strategy
+        self.topology, self.topo_cfg = topology, topo_cfg
+        self.num_clusters = cfg.num_clusters
+        self.state0, self.draws, self.device = state0, draws, device
+        self.K = K = topology.num_clients
+        self.noise_var = (topology.noise_var if cfg.snr_db is None else
+                          snr_db_to_noise_var(topology.total_power,
+                                              cfg.snr_db))
+        self.sched = (None if scenario.schedule.is_trivial else
+                      init_schedule(scenario.schedule, K, device))
+        self.faults = (None if scenario.faults.is_trivial else
+                       init_faults(scenario.faults, K, device))
+        self.chan = None
+        if scenario.channel.evolves_geometry:
+            self.chan = init_channel(topology, topo_cfg,
+                                     draws.channel_init(K).to(device))
+        self.plan = state0.plan if scenario.recluster_every > 0 else None
+        self.records = {"alive": [], "mask_mass": [], "quarantined": [],
+                        "heads": []}
+
+    def sync(self, t: int, trained, pre_round, consensus, noise):
+        """One sync of round ``t`` on the locally ``trained`` params;
+        ``pre_round`` and ``consensus`` are the round's starting params and
+        the last consensus.  Returns ``(new_stacked, consensus)``."""
+        sc, strategy = self.scenario, self.strategy
+        K, dev = self.K, self.device
+        if self.chan is not None:
+            self.chan = step_channel(
+                self.chan, sc.channel, self.topo_cfg,
+                self._to_device(self.draws.channel_step(t, K)))
+            view = channel_view(self.chan, self.topo_cfg)
+        else:
+            view = ChannelView(link_gain=self.topology.link_gain,
+                               link_snr=self.topology.link_snr,
+                               adjacency=self.topology.adjacency)
+
+        mask = None
+        if self.sched is not None:
+            mask, self.sched = participation_mask(
+                sc.schedule, self.sched, t,
+                self.draws.schedule_uniforms(t, K).to(dev))
+
+        alive = None
+        quarantined = torch.zeros((), device=dev)
+        if self.faults is not None:
+            # Transmit outages fold into the mask; a quarantined client
+            # transmits nothing and keeps its pre-round params (0 × NaN =
+            # NaN, so masking alone cannot contain a non-finite update).
+            self.faults, fview = step_faults(
+                self.faults, sc.faults,
+                self._to_device(self.draws.fault_uniforms(t, K)))
+            alive = fview.alive
+            mask = fview.tx_ok if mask is None else mask * fview.tx_ok
+            if sc.faults.divergence_guard:
+                q = quarantine_mask(trained, sc.faults.quarantine_norm)
+                trained = _tree_where(q, trained, pre_round)
+                mask = mask * q
+                quarantined = K - q.sum()
+
+        csi = None
+        if sc.channel.csi_error_std > 0:
+            csi = csi_perturbation(self.draws.csi_normals(t, K).to(dev),
+                                   sc.channel.csi_error_std)
+
+        plan = None
+        if self.plan is not None:
+            if t % sc.recluster_every == 0:
+                self.plan = strategy.recluster(
+                    view, self.num_clusters,
+                    self.draws.recluster_first(t, K))
+            plan = self.plan
+        if alive is not None:
+            plan = strategy.on_head_failure(self.state0, plan, view, alive)
+
+        state = strategy.state_from_view(self.state0, view, self.noise_var,
+                                         csi=csi, mask=mask, plan=plan,
+                                         alive=alive)
+        new, new_consensus = strategy.aggregate(trained, state, noise,
+                                                mask=mask, alive=alive)
+        if mask is not None:
+            recv = strategy.receive_mask(state, mask, alive=alive)
+            # Absent clients keep their locally trained params, receivers
+            # forced present keep the aggregate; if nobody took part the
+            # sync is skipped and the last consensus stands — decided on
+            # the device.
+            present = (torch.sum(mask) > 0).to(torch.float32)
+            new = _tree_where(recv * present, new, trained)
+            new_consensus = _tree_where(present[None], new_consensus,
+                                        consensus)
+
+        rec = self.records
+        rec["alive"].append(torch.sum(alive) if alive is not None else
+                            torch.tensor(float(K), device=dev))
+        rec["mask_mass"].append(torch.sum(mask) if mask is not None else
+                                torch.tensor(float(K), device=dev))
+        rec["quarantined"].append(quarantined)
+        rec["heads"].append(state.plan.heads)
+        return new, new_consensus
+
+    def _to_device(self, draws):
+        return type(draws)(*(x.to(self.device) for x in draws))
+
+
 def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
                topology: Topology, xs: torch.Tensor, ys: torch.Tensor,
                x_test: torch.Tensor, y_test: torch.Tensor, cfg,
-               scenario: Optional[str] = None,
+               scenario: Union[Scenario, str, None] = None,
+               topo_cfg: Optional[TopologyConfig] = None,
                progress: Optional[Callable] = None,
                draws: Optional[Draws] = None,
                device=None) -> dict[str, Any]:
@@ -58,20 +197,39 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
 
     ``xs, ys``: stacked client shards (K, N_k, ...).  ``loss_fn(params, x,
     y)`` must take K-stacked params and (K, B, ...) batches.
-    ``scenario``: ``None`` or ``"paper-static"``; others are not ported.
+    ``scenario``: a `Scenario`, a registered name, or ``None`` (the
+    static ``paper-static``).  ``topo_cfg``: the `TopologyConfig` that made
+    ``topology``; a scenario whose channel evolves needs it.
     ``progress(r, loss, acc)``: optional per-round callback (syncs the host
     every round).  ``draws``: the run's random draws (default: `TorchDraws`
     seeded from ``cfg.seed`` on ``device``).  ``device``: where the run
     happens (``None`` = the GPU); inputs are moved there.
+
+    The history holds per-round ``train_loss`` and ``test_acc`` (T,) and the
+    final consensus; a dynamic scenario adds ``scenario``: per round, the
+    live nodes, the mask's mass, the quarantined clients (T,) and the
+    heads (T, C).
     """
-    if scenario not in (None, STATIC_SCENARIO):
-        raise NotImplementedError(
-            f"scenario {scenario!r}: only {STATIC_SCENARIO!r} is ported")
+    if isinstance(scenario, str):
+        scenario = get_scenario(scenario)
+    scenario = scenario or Scenario()
     if cfg.mu_prox > 0:
         raise NotImplementedError("FedProx (mu_prox > 0) is not ported yet")
+    strategy = get_strategy(cfg.strategy)
+    if scenario.strategy is not None and scenario.strategy != strategy.name:
+        warnings.warn(
+            f"scenario {scenario.name!r} pins strategy "
+            f"{scenario.strategy!r} but the run uses cfg.strategy="
+            f"{strategy.name!r}; pass FLConfig(strategy="
+            f"{scenario.strategy!r}) to honor the scenario's pin",
+            UserWarning, stacklevel=2)
+    if scenario.channel.evolves_geometry and topo_cfg is None:
+        raise ValueError(
+            "dynamic-channel scenarios need the TopologyConfig that "
+            "generated the topology (geometry statics: area, d0, ς, "
+            "outage threshold)")
     device = resolve_device(device)
     with _full_f32():
-        strategy = get_strategy(cfg.strategy)
         topology = topology.to(device)
         xs, ys = xs.to(device), ys.to(device)
         x_ev = x_test[: cfg.eval_samples].to(device)
@@ -91,6 +249,9 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
                            consensus)
         opt_state = optimizer.init(stacked)
         d = tree_size(consensus)
+        dynamics = (None if scenario.is_static else _Dynamics(
+            scenario, strategy, topology, topo_cfg, cfg, state, draws,
+            device))
 
         losses, accs = [], []
         for t in range(cfg.rounds):
@@ -98,9 +259,14 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
             trained, opt_state, client_loss = local_run(
                 stacked, opt_state, xs, ys, idx.to(device))
             unit1, unit2 = draws.phase_noise(t, cfg.num_clusters, d)
+            noise = (unit1.to(device), unit2.to(device))
             with torch.no_grad():
-                stacked, consensus = strategy.aggregate(
-                    trained, state, (unit1.to(device), unit2.to(device)))
+                if dynamics is None:
+                    stacked, consensus = strategy.aggregate(trained, state,
+                                                            noise)
+                else:
+                    stacked, consensus = dynamics.sync(t, trained, stacked,
+                                                       consensus, noise)
                 acc = accuracy(apply_fn(consensus, x_ev), y_ev)
             loss = torch.mean(client_loss)
             losses.append(loss)
@@ -109,7 +275,7 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
                 progress(t + 1, float(loss), float(acc))
 
         loss, acc = torch.stack(losses), torch.stack(accs)
-        return {
+        history = {
             "round": np.arange(1, cfg.rounds + 1),
             "train_loss": loss,
             "test_acc": acc,
@@ -117,3 +283,7 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
             "avg_acc": torch.mean(acc),
             "final_acc": acc[-1],
         }
+        if dynamics is not None:
+            history["scenario"] = {k: torch.stack(v) for k, v in
+                                   dynamics.records.items()}
+        return history

@@ -33,17 +33,19 @@ def run_federated(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
                   topology: Topology, xs: torch.Tensor, ys: torch.Tensor,
                   x_test: torch.Tensor, y_test: torch.Tensor,
                   cfg: FLConfig, progress: Optional[Callable] = None,
-                  scenario: Optional[str] = None, draws=None,
+                  scenario=None, topo_cfg=None, draws=None,
                   device=None) -> dict[str, Any]:
     """Run FL; returns a history dict with per-round test accuracy/loss as
     Python floats.  ``xs, ys``: stacked client shards (K, N_k, ...).
-    ``device=None`` runs on the GPU; see `repro_torch.sim.engine.run_rounds`
-    for ``scenario`` and ``draws``."""
+    ``scenario``/``topo_cfg`` opt into the scenario dynamics (a `Scenario`
+    or a registered name, and the `TopologyConfig` that made
+    ``topology``).  ``device=None`` runs on the GPU; see
+    `repro_torch.sim.engine.run_rounds` for ``scenario`` and ``draws``."""
     from repro_torch.sim.engine import run_rounds  # deferred: sim imports training
 
     h = run_rounds(init_fn, apply_fn, loss_fn, topology, xs, ys, x_test,
-                   y_test, cfg, scenario=scenario, progress=progress,
-                   draws=draws, device=device)
+                   y_test, cfg, scenario=scenario, topo_cfg=topo_cfg,
+                   progress=progress, draws=draws, device=device)
     history = {
         "round": [int(r) for r in h["round"]],
         "train_loss": h["train_loss"].tolist(),
@@ -52,4 +54,6 @@ def run_federated(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
     history["final_params"] = h["final_params"]
     history["avg_acc"] = float(h["avg_acc"])
     history["final_acc"] = history["test_acc"][-1]
+    if "scenario" in h:
+        history["scenario"] = {k: v.tolist() for k, v in h["scenario"].items()}
     return history

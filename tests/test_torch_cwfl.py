@@ -138,3 +138,113 @@ def test_strategy_registry_resolves_cwfl():
         get_strategy("no-such-strategy")
     with pytest.raises(ValueError):
         register_strategy("cwfl", CWFLStrategy(name="cwfl"))
+
+
+def _fault_case(plan, case, seed=0):
+    """(mask, alive) of one masked or faulty round on a K=8, C=3 plan; a
+    crashed node cannot transmit, so the mask is 0 where ``alive`` is, as
+    the engine folds it."""
+    rng = np.random.default_rng(seed)
+    heads = np.asarray(plan.heads)
+    members0 = np.flatnonzero(np.asarray(plan.assignment) == 0)
+    mask = (rng.uniform(size=K) < 0.6).astype(np.float32)
+    alive = None
+    if case == "mask-heads-off":
+        mask[heads] = 0.0
+    elif case == "all-masked":
+        mask[:] = 0.0
+    elif case == "head-crashed":
+        alive = np.ones(K, np.float32)
+        alive[heads[0]] = 0.0
+        mask *= alive
+    elif case == "dead-cluster":
+        alive = np.ones(K, np.float32)
+        alive[members0] = 0.0
+        mask = alive.copy()
+    elif case == "alive-only":
+        alive = np.ones(K, np.float32)
+        alive[heads[1]] = 0.0
+        mask = None
+    return mask, alive
+
+
+FAULT_CASES = ["mask", "mask-heads-off", "all-masked", "head-crashed",
+               "dead-cluster", "alive-only"]
+
+
+def _both(x):
+    return (None, None) if x is None else (jnp.asarray(x),
+                                           torch.from_numpy(x.copy()))
+
+
+def _assert_match(got, ref, name):
+    """rel 1e-5, with the zeros where JAX has them."""
+    got, ref = got.numpy(), np.asarray(ref)
+    np.testing.assert_array_equal(got == 0, ref == 0, err_msg=name)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("case", FAULT_CASES)
+def test_participation_weights_match_jax(states, case):
+    jstate, tstate = states
+    (jm, tm), (ja, ta) = (_both(x) for x in _fault_case(jstate.plan, case))
+    ref = jcwfl.participation_weights(jstate, jm, alive=ja)
+    _assert_match(tcwfl.participation_weights(tstate, tm, alive=ta), ref,
+                  "participation")
+    assert tcwfl.participation_weights(tstate, None) is None
+
+
+@pytest.mark.parametrize("live", [(1, 1, 1), (0, 1, 1), (1, 0, 0),
+                                  (0, 0, 0)])
+def test_phase2_weights_live_match_jax(states, live):
+    """Dead clusters leave B̃ by column; an all-dead plan leaves zero rows
+    (row sums clamped at 1e-12)."""
+    jstate, tstate = states
+    lv = np.array(live, bool)
+    for name, a, b in zip(
+            ("B", "kappa"),
+            tcwfl.phase2_weights(tstate, live=torch.from_numpy(lv)),
+            jcwfl.phase2_weights(jstate, live=jnp.asarray(lv))):
+        _assert_match(a, b, name)
+
+
+@pytest.mark.parametrize("case", FAULT_CASES)
+def test_round_coefficients_masked_match_jax(states, case):
+    jstate, tstate = states
+    stacked = _stacked(3.0)
+    mask, alive = _fault_case(jstate.plan, case)
+    (jm, tm), (ja, ta) = _both(mask), _both(alive)
+    ref = jcwfl.round_coefficients(jstate, jax.tree.map(jnp.asarray, stacked),
+                                   mask=jm, alive=ja)
+    got = tcwfl.round_coefficients(
+        tstate, params_from_jax(stacked, device="cpu"), mask=tm, alive=ta)
+    for name, a, b in zip(("A", "eff_std1", "B", "kappa", "M"), got, ref):
+        _assert_match(a, b, name)
+    if case == "dead-cluster":
+        assert float(got[0][0].abs().sum()) == 0.0 and float(got[1][0]) == 0.0
+
+
+@pytest.mark.parametrize("case", FAULT_CASES)
+def test_aggregate_masked_match_jax(states, case):
+    """The masked and faulty round, the guard on wherever ``alive`` is
+    given (as `cwfl.aggregate` runs it); one client's signal is
+    NaN where the round is guarded."""
+    jstate, tstate = states
+    stacked = _stacked(0.5, seed=3)
+    mask, alive = _fault_case(jstate.plan, case, seed=1)
+    guard = alive is not None
+    if guard:
+        stacked["fc1"]["w"][int(np.argmin(alive))] = np.nan
+    (jm, tm), (ja, ta) = _both(mask), _both(alive)
+    key = jax.random.PRNGKey(7)
+    ref_new, ref_cons = jcwfl.aggregate(jax.tree.map(jnp.asarray, stacked),
+                                        jstate, key, mask=jm, alive=ja,
+                                        guard=guard)
+    new, cons = tcwfl.aggregate(params_from_jax(stacked, device="cpu"),
+                                tstate, _unit_noise(key, stacked), mask=tm,
+                                alive=ta)
+    for a, b in zip(tree_leaves(new) + tree_leaves(cons),
+                    jax.tree.leaves(ref_new) + jax.tree.leaves(ref_cons)):
+        assert np.all(np.isfinite(a.numpy()))
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=0)

@@ -1,6 +1,8 @@
 """The port's CWFL round (plain version and the wrapper's CPU route)
 against the JAX package's Pallas kernel (interpret mode) and its jnp
-oracle, on identical numpy inputs."""
+oracle, on identical numpy inputs, unguarded and guarded."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,6 +69,20 @@ def test_cwfl_round_bf16_signals_match_jax(port):
     np.testing.assert_allclose(cons, ref_cons, atol=F32_ATOL, rtol=0)
 
 
+def _poisoned(K, C, d, seed):
+    """Inputs of a fault round: NaN and ±inf in S (one NaN client under a
+    zero Ã column), and one all-zero Ã row whose noise is not zero."""
+    s, a, n1, b, n2, m = _inputs(K, C, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    bad = rng.uniform(size=s.shape) < 0.01
+    s[bad] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                        int(bad.sum()))
+    s[K - 1, ::5] = np.nan
+    a[:, K - 1] = 0.0
+    a[C - 1] = 0.0
+    return s, a, n1, b, n2, m
+
+
 def test_cwfl_round_ref_guard_matches_jax():
     """Non-finite signals are zeroed and a dead Ã row zeroes its θ̃ row."""
     s, a, n1, b, n2, m = _inputs(10, 3, 700, seed=2)
@@ -84,6 +100,42 @@ def test_cwfl_round_ref_guard_matches_jax():
                                rtol=0)
 
 
+@pytest.mark.parametrize("K,C,d", [(8, 3, 2048), (16, 4, 2049), (1, 3, 700),
+                                   (9, 1, 700)])
+@pytest.mark.parametrize("port", ["ref", "cpu_route"])
+def test_cwfl_round_guard_matches_jax(K, C, d, port):
+    """The guarded round (kernel 2) against JAX's guarded Pallas kernel in
+    interpret mode and its guarded oracle, on a poisoned fault round.  At
+    K=1 the one client is the NaN client under a zero column; at C=1 the
+    one row is dead."""
+    args = _poisoned(K, C, d, seed=K + C)
+    fn = functools.partial(cwfl_round_ref if port == "ref" else cwfl_round,
+                           guard=True)
+    new, cons = _torch(fn, args)
+    assert np.all(np.isfinite(new)) and np.all(np.isfinite(cons))
+    for jfn in (functools.partial(jax_cwfl_round, interpret=True,
+                                  guard=True),
+                functools.partial(jax_cwfl_round_ref, guard=True)):
+        ref = _jax(jfn, args)
+        np.testing.assert_allclose(new, ref[0], atol=F32_ATOL, rtol=0)
+        np.testing.assert_allclose(cons, ref[1], atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("port", ["ref", "cpu_route"])
+def test_cwfl_round_guard_bf16_signals_match_jax(port):
+    """bf16 S through the guard: within one bf16 ulp + F32_ATOL."""
+    args = _poisoned(8, 3, 2048, seed=5)
+    fn = functools.partial(cwfl_round_ref if port == "ref" else cwfl_round,
+                           guard=True)
+    new, cons = _torch(fn, args, dtype=torch.bfloat16)
+    assert np.all(np.isfinite(new)) and np.all(np.isfinite(cons))
+    ref_new, ref_cons = _jax(functools.partial(jax_cwfl_round,
+                                               interpret=True, guard=True),
+                             args, dtype=jnp.bfloat16)
+    np.testing.assert_allclose(new, ref_new, rtol=2.0 ** -7, atol=F32_ATOL)
+    np.testing.assert_allclose(cons, ref_cons, atol=F32_ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("K,C,d,itemsize", [(50, 3, 184214, 4),
                                             (8, 3, 2048, 2)])
 def test_hbm_bytes_model_matches_jax(K, C, d, itemsize):
@@ -95,6 +147,12 @@ def test_cwfl_round_cpu_route_does_not_launch():
     before = kmod.launches
     _torch(cwfl_round, _inputs(4, 2, 256))
     assert kmod.launches == before
+
+
+def test_cwfl_round_guard_cpu_route_does_not_launch():
+    before = (kmod.launches, kmod.launches_guard)
+    _torch(cwfl_round, _poisoned(4, 2, 256, seed=0), guard=True)
+    assert (kmod.launches, kmod.launches_guard) == before
 
 
 @pytest.mark.parametrize("bad", ["phase1_shape", "noise_dtype",

@@ -108,33 +108,87 @@ def test_cluster_plan_matches_jax(world, num_clusters):
 
 
 @pytest.mark.parametrize("seed,num_clusters,members,jax_head", [
-    (7, 3, (11, 14), 11), (4, 5, (0, 13), 13)],
+    (4, 5, (0, 13), 0), (7, 3, (11, 14), 14)],
     ids=["jax-lower", "jax-higher"])
 def test_two_member_cluster_elects_its_lower_index(seed, num_clusters,
                                                    members, jax_head):
-    """A two-member cluster's members tie for head in exact arithmetic.
-    The port always elects the lower index; JAX's f32 rounding decides,
-    and at the second case it elects the higher one.  The rest of the
-    plan agrees."""
+    """A two-member cluster's members tie for head in exact arithmetic, so
+    the f32 rounding of the sum of squares picks the head: the lower index
+    at the first case, the higher at the second.  Fed JAX's features, the
+    port sums in XLA's order and elects JAX's head at both; the rest of
+    the plan agrees.  JAX runs eagerly here, as the engine's setup runs
+    it: under ``jit`` XLA contracts the sum into FMAs and elects the other
+    member at both cases."""
     K = 16
     cfg = jtopo.TopologyConfig(num_clients=K)
     pos, gain, snr, adj = _jax_topology_arrays(jax.random.PRNGKey(seed), cfg)
-    ttop = topology_from_arrays(np.asarray(pos), np.asarray(gain),
-                                ttopo.TopologyConfig(num_clients=K),
-                                device="cpu")
     key = jax.random.PRNGKey(11)
-    ref = _jax_cluster_plan(snr, adj, num_clusters, key)
-    plan = tcl.make_cluster_plan(ttop.link_snr, ttop.adjacency, num_clusters,
-                                 int(jax.random.randint(key, (), 0, K)))
+    ref = jcl.make_cluster_plan(snr, adj, num_clusters, key)
+    feats = _t(jcl.snr_features(snr, adj))
+    first = int(jax.random.randint(key, (), 0, K))
+    plan = tcl._plan_from_features(feats, _t(snr), num_clusters, first, 50)
     np.testing.assert_array_equal(plan.assignment.numpy(),
                                   np.asarray(ref.assignment))
     c = int(np.asarray(ref.assignment)[members[0]])
     assert tuple(np.flatnonzero(np.asarray(ref.assignment) == c)) == members
     assert int(np.asarray(ref.heads)[c]) == jax_head
-    assert int(plan.heads[c]) == members[0]
-    others = np.arange(num_clusters) != c
-    np.testing.assert_array_equal(plan.heads.numpy()[others],
-                                  np.asarray(ref.heads)[others])
+    np.testing.assert_array_equal(plan.heads.numpy(), np.asarray(ref.heads))
+
+
+@pytest.mark.parametrize("n", [5, 16, 32, 33, 50, 63, 64, 95, 96, 128,
+                               160])
+def test_sum_in_xla_order_matches_xla(n):
+    """The head election's sum of squares, bitwise against XLA's eager CPU
+    reduction, at row lengths (the client count K) where the port takes
+    XLA's order: n <= 64, and n = 95, 96, 128, 160.  The rows are the
+    election's own form, squared differences of features and centroids."""
+    rng = np.random.default_rng(n)
+    feats = (rng.standard_normal((50, 1, n)) * 30).astype(np.float32)
+    cents = (rng.standard_normal((1, 5, n)) * 30).astype(np.float32)
+    ref = jnp.sum((jnp.asarray(feats) - jnp.asarray(cents)) ** 2, axis=-1)
+    diff = torch.from_numpy(feats) - torch.from_numpy(cents)
+    np.testing.assert_array_equal(tcl._sum_in_xla_order(diff * diff).numpy(),
+                                  np.asarray(ref))
+
+
+@pytest.mark.parametrize("case", ["random0", "random1", "random2",
+                                  "heads-dead", "dead-cluster", "all-dead",
+                                  "all-up"])
+def test_reelect_heads_matches_jax(world, case):
+    """Dead heads are replaced by the best surviving member; a fully dead
+    cluster keeps its head.  Both sides take JAX's link SNRs."""
+    cfg, topo, tcfg, ttop = world
+    K = cfg.num_clients
+    ref_plan = _jax_cluster_plan(topo.link_snr, topo.adjacency, 3,
+                                 jax.random.PRNGKey(5))
+    heads = np.asarray(ref_plan.heads)
+    assign = np.asarray(ref_plan.assignment)
+    alive = np.ones(K, np.float32)
+    if case.startswith("random"):
+        rng = np.random.default_rng(int(case[-1]))
+        alive = (rng.uniform(size=K) < 0.6).astype(np.float32)
+        alive[heads[int(case[-1])]] = 0.0
+    elif case == "heads-dead":
+        alive[heads] = 0.0
+    elif case == "dead-cluster":
+        alive[assign == assign[heads[1]]] = 0.0
+        alive[heads[0]] = 0.0
+    elif case == "all-dead":
+        alive[:] = 0.0
+    ref = jcl.reelect_heads(ref_plan, topo.link_snr, jnp.asarray(alive))
+    plan = plan_from_arrays(*(np.asarray(x) for x in (
+        ref_plan.assignment, ref_plan.heads, ref_plan.membership,
+        ref_plan.cluster_snr, ref_plan.head_mask)), device="cpu")
+    got = tcl.reelect_heads(plan, _t(topo.link_snr), _t(alive))
+    np.testing.assert_array_equal(got.heads.numpy(), np.asarray(ref.heads))
+    np.testing.assert_array_equal(got.head_mask.numpy(),
+                                  np.asarray(ref.head_mask))
+    np.testing.assert_array_equal(got.membership.numpy(),
+                                  np.asarray(ref.membership))
+    np.testing.assert_allclose(got.cluster_snr.numpy(),
+                               np.asarray(ref.cluster_snr), rtol=RTOL)
+    if case == "heads-dead":
+        assert not np.any(np.isin(got.heads.numpy(), heads))
 
 
 def test_consensus_weights_match_jax():

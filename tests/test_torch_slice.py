@@ -143,11 +143,13 @@ def test_run_federated_needs_a_card_unless_told_cpu(workload):
 
 
 def test_run_federated_rejects_unported_scenarios(workload):
+    """Every registered scenario runs; FedProx (``mu_prox > 0``, what
+    ``straggler-prox``'s ``cwfl_prox`` would set) is not ported."""
     init, apply, loss, ttop, data = _torch_side(workload)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="mu_prox"):
         run_federated(init, apply, loss, ttop, *data,
-                      FLConfig(rounds=1, eval_samples=EVAL),
-                      scenario="mobile-fading", device="cpu")
+                      FLConfig(rounds=1, eval_samples=EVAL, mu_prox=0.1),
+                      scenario="straggler-prox", device="cpu")
 
 
 def test_run_federated_turns_tf32_off_for_the_run_only(workload):
