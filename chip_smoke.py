@@ -7,16 +7,27 @@ Phases, each printed as one JSON object per line:
 
 1. device — the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions, the TF32 flags;
-2. build — ``nvcc`` builds every kernel of the main path from the sources
-   in this checkout (into ``build/torch_kernels/``);
+2. build — ``nvcc`` builds every kernel of the port's paths from the
+   sources in this checkout (into ``build/torch_kernels/``), one compiler
+   for each source, all started together; then the same cold build one
+   compiler after another, timed, into a scratch directory;
 3. kernel — each CUDA kernel against its plain PyTorch version on the card,
-   at the shapes of the main path and a few ragged ones, with its time, the
+   at the shapes of the main paths and a few ragged ones, with its time, the
    plain version's time and the least time the card could take (its bound):
    ``cwfl_round`` and its guarded variant ``cwfl_round_guard``, the latter
-   on signals with NaN and ±inf and a dead Ã row;
+   on signals with NaN and ±inf and a dead Ã row; ``flash_attention`` at
+   Gemma-2 9B's prefill shapes (f32 and bf16, local and global layers,
+   with and without the softcap), a ragged GQA shape, and a small shape
+   for each head dim and dtype; beside it one library call on the same
+   inputs as a yardstick, held against the plain version too:
+   ``flex_attention`` (compiled; the softcap as its ``score_mod``, the
+   causal/window band as its block mask) where there is a softcap,
+   ``scaled_dot_product_attention`` where there is none;
 4. reference — small runs on the card against the same runs on the CPU,
-   with the same draws: the static slice, ``flaky-clients``, and a
-   dead-cluster run whose faults kill whole clusters;
+   with the same draws: the static slice, ``flaky-clients``, a
+   dead-cluster run whose faults kill whole clusters, and greedy decoding
+   of the reduced Gemma-2 (its local window cut to 8) with the same
+   weights;
 5. slice — ``run_federated`` with CWFL on the static scenario at the full
    width of the paper's MNIST model (K=50 clients, C=3 clusters, the
    784-200-100-64-10 MLP, d=184,214) for a few rounds, with every kernel's
@@ -25,9 +36,15 @@ Phases, each printed as one JSON object per line:
    ``mobile-fading`` and ``cluster-churn``: each fault round through the
    guarded kernel and no other, per-round live nodes, heads and mask mass,
    the test accuracy held to floors derived from the JAX package's runs;
-7. profile — the static slice, then ``head-failure``, under
-   ``torch.profiler``, its window on the rounds after the first: device
-   time by kernel, launches per round and the device's idle share.
+7. serve — ``greedy_decode`` of Gemma-2 9B at its published width (f32,
+   random weights drawn on the card): 2 requests of 4,608-token prompts,
+   16 greedy tokens; prefill seconds, decode tokens/s, the kernel's
+   launches (one per layer in the prefill, none in decode), peak memory,
+   and the last logits held against ``forward`` over the same tokens;
+8. profile — under ``torch.profiler``: one Gemma-2 9B prefill and one
+   decode step; then the static slice and ``head-failure``, the window
+   on the rounds after the first; device time by kernel, launches and
+   the device's idle share.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -35,6 +52,7 @@ script exits non-zero; it needs a CUDA device and has no CPU path.
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -45,9 +63,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense): device-memory
-# bytes/s and f32 FLOP/s outside the tensor cores, matched on the name the
-# card reports.
-PEAKS = (("H100 80GB HBM3", 3.35e12, 67e12),)
+# bytes/s, f32 FLOP/s outside the tensor cores, and bf16 FLOP/s on the
+# tensor cores, matched on the name the card reports.
+PEAKS = (("H100 80GB HBM3", 3.35e12, 67e12, 989e12),)
 
 DEVICE = "cuda"
 F32_ATOL = 1e-5          # f32 sums in another order than cuBLAS's
@@ -59,9 +77,10 @@ def emit(obj) -> None:
 
 
 def card_peaks(name: str):
-    for key, bw, flops in PEAKS:
+    """(bytes/s, f32 FLOP/s, bf16 FLOP/s) of the card called ``name``."""
+    for key, *peaks in PEAKS:
         if key in name:
-            return bw, flops
+            return peaks
     raise RuntimeError(f"no published peaks for {name!r}; add them to PEAKS")
 
 
@@ -156,7 +175,7 @@ def kernel_phase(kmod, ref_fn, guard: bool = False):
                 "max_abs_err_cons": err_cons, "tol_cons": F32_ATOL,
                 "finite": finite}
         if label == "main":
-            bw, peak = card_peaks(torch.cuda.get_device_name(0))
+            bw, peak, _ = card_peaks(torch.cuda.get_device_name(0))
             nbytes = (kmod.hbm_bytes_model(K, C, d)["fused_bytes"]
                       + 4 * (2 * C * K + C * C))
             flops = d * (2 * C * K + 2 * C * C + 2 * K * C + 3 * C)
@@ -489,13 +508,348 @@ def profile_phase(scenario: str = "paper-static", rounds: int = 6):
                   for name, ms, cnt in rows[:12]]})
 
 
+# flash_attention at the shapes Gemma-2 9B's prefill gives it (B=2 requests
+# of 4,608 tokens, 16 heads on 8 KV heads, head dim 256; local layers with
+# a 4,096-token window, global ones without; softcap 50), their bf16 and
+# cap-0 variants, a ragged GQA shape, and a small shape for every head dim
+# and dtype the kernel is built for.  q is scaled by 4 so that the scores
+# reach past ±15 and the softcap bends them.
+FA_SHAPES = (
+    # label, B, H, KV, S, D, dtype, window, cap
+    ("gemma2_global", 2, 16, 8, 4608, 256, torch.float32, 0, 50.0),
+    ("gemma2_local", 2, 16, 8, 4608, 256, torch.float32, 4096, 50.0),
+    ("gemma2_global_bf16", 2, 16, 8, 4608, 256, torch.bfloat16, 0, 50.0),
+    ("gemma2_local_bf16", 2, 16, 8, 4608, 256, torch.bfloat16, 4096, 50.0),
+    ("gemma2_global_cap0", 2, 16, 8, 4608, 256, torch.float32, 0, 0.0),
+    ("gemma2_local_cap0", 2, 16, 8, 4608, 256, torch.float32, 4096, 0.0),
+    ("ragged_gqa", 1, 16, 2, 1000, 128, torch.float32, 0, 0.0),
+) + tuple((f"small_d{D}_{str(dt)[6:]}", 2, 6, 2, 130, D, dt, 40, 50.0)
+          for D in (32, 64, 128, 256)
+          for dt in (torch.float32, torch.bfloat16))
+# Tolerances against the plain version (f32 sums in another order, and
+# bf16 outputs); the full-width shapes sum 4,608 terms a row.
+FA_TOL = {"full_f32": 1e-4, "small_f32": 2e-5, "bf16": 5e-2}
+
+
+def unmasked_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal head of S tokens keeps under a window
+    (0: none): the work the attention must do, 4·D operations each."""
+    if window <= 0:
+        return S * (S + 1) // 2
+    return sum(min(q + 1, window) for q in range(S))
+
+
+def flex_yardstick(q, k, v, window: int, cap: float):
+    """``flex_attention`` set up to compute the kernel's function on these
+    inputs: its default D^-0.5 scale, the softcap as its ``score_mod``,
+    the causal/window band as its block mask, GQA.  Compiled, as it is
+    meant to be used; eager if the compiler fails here.  Returns the call
+    and its name."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def band(b, h, qi, ki):
+        keep = ki <= qi
+        return keep & (ki > qi - window) if window > 0 else keep
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    S = q.shape[2]
+    kw = {"block_mask": create_block_mask(band, None, None, S, S,
+                                          device=DEVICE),
+          "score_mod": softcap, "enable_gqa": True}
+    import torch._inductor.config as inductor_config
+    inductor_config.compile_threads = 1   # no pool of workers left behind
+    compiled = torch.compile(flex_attention, dynamic=False)
+    try:
+        compiled(q, k, v, **kw)
+        torch.cuda.synchronize()
+        return (lambda: compiled(q, k, v, **kw)), "flex_attention (compiled)"
+    except Exception as exc:   # the yardstick only; the port never calls it
+        emit({"phase": "kernel", "note": f"flex_attention did not compile, "
+                                         f"timed eager: {exc!r}"[:500]})
+        return (lambda: flex_attention(q, k, v, **kw)), \
+            "flex_attention (eager)"
+
+
+def flash_kernel_phase(fa, ref_fn):
+    """flash_attention against its plain version at FA_SHAPES; returns the
+    row of the kernels summary, at the main path's shape (the global
+    layer, f32, cap 50)."""
+    import torch.nn.functional as F
+
+    bw, peak_f32, peak_bf16 = card_peaks(torch.cuda.get_device_name(0))
+    rows = {}
+    for label, B, H, KV, S, D, dtype, window, cap in FA_SHAPES:
+        g = torch.Generator(DEVICE).manual_seed(S + D + window)
+        q = (4 * torch.randn(B, H, S, D, generator=g, device=DEVICE)).to(
+            dtype)
+        k = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
+        v = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
+        mode = {"causal": True, "window": window, "cap": cap}
+        out = fa.flash_attention(q, k, v, **mode)
+        ref = ref_fn(q, k, v, **mode)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = (FA_TOL["bf16"] if dtype == torch.bfloat16 else
+               FA_TOL["full_f32"] if S >= 4096 else FA_TOL["small_f32"])
+        line = {"phase": "kernel", "kernel": "flash_attention",
+                "shape": label, "B": B, "H": H, "KV": KV, "S": S, "D": D,
+                "dtype": str(dtype), "window": window, "cap": cap,
+                "max_abs_err": err, "tol": tol,
+                "finite": bool(torch.isfinite(out.float()).all())}
+        if not label.startswith("small"):
+            pairs = B * H * unmasked_pairs(S, window)
+            flops = 4 * D * pairs
+            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            peak = peak_bf16 if dtype == torch.bfloat16 else peak_f32
+            bound_bytes, bound_ops = nbytes / bw * 1e3, flops / peak * 1e3
+            reps = 10 if S >= 4096 else 30
+            ms = time_cold(lambda: fa.flash_attention(q, k, v, **mode),
+                           reps)
+            plain_ms = time_cold(lambda: ref_fn(q, k, v, **mode), reps)
+            line.update(ms=ms, plain_ms=plain_ms, flops=flops,
+                        bytes=nbytes, bound_ms_bytes=bound_bytes,
+                        bound_ms_operations=bound_ops,
+                        achieved_flops_per_s=flops / (ms * 1e-3))
+            # The library yardstick, never on the port's path: one PyTorch
+            # call on the same inputs, held against the plain version too.
+            if cap == 0.0:
+                if window > 0:
+                    qp = torch.arange(S, device=DEVICE)[:, None]
+                    kp = torch.arange(S, device=DEVICE)[None, :]
+                    sdpa_kw = {"attn_mask": (kp <= qp) & (kp > qp - window)}
+                else:
+                    sdpa_kw = {"is_causal": True}
+                lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                    q, k, v, enable_gqa=True, **sdpa_kw)
+                line["library"] = "scaled_dot_product_attention"
+            else:
+                lib, line["library"] = flex_yardstick(q, k, v, window, cap)
+            line["library_max_abs_err"] = float(
+                (lib().float() - ref.float()).abs().max())
+            line["library_ms"] = time_cold(lib, reps)
+            rows[label] = line
+        del ref
+        emit(line)
+        if not (err <= tol and line["finite"]):
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at {label}: {line}")
+        if line.get("library_max_abs_err", 0.0) > tol:
+            raise AssertionError(f"the library yardstick computes another "
+                                 f"function at {label}: {line}")
+    main, cap0 = rows["gemma2_global"], rows["gemma2_global_cap0"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:28",
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": max(main["bound_ms_bytes"],
+                            main["bound_ms_operations"]),
+            "bound_by": ("bytes" if main["bound_ms_bytes"]
+                         >= main["bound_ms_operations"] else "operations"),
+            # flex_attention with the softcap; SDPA (no softcap) on the
+            # same shape at cap 0 beside it, with the kernel's time there.
+            "library_ms": main["library_ms"], "library": main["library"],
+            "library_ms_cap0": cap0["library_ms"], "ms_cap0": cap0["ms"]}
+
+
+def lm_reference_phase(fa):
+    """Greedy decoding of the reduced Gemma-2 on the card against the CPU,
+    with the same weights and prompt: the same tokens, the last logits
+    within 1e-4, and one kernel launch per layer on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import LayerSpec
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.training.serve import greedy_decode
+    from repro_torch.utils import tree_map
+
+    # Gemma-2 9B reduced (d_model 128, 4 layers, head dim 32), its local
+    # window cut to 8 so that it bites at a 20-token prompt.
+    cfg = get_config("gemma2-9b", reduced=True).replace(
+        pattern=(LayerSpec("attn", 8, "dense"), LayerSpec("attn", 0, "dense")))
+    params = tfm.init_params(0, cfg, device="cpu")
+    batch = make_batch(1, cfg, 20, 2, kind="prefill", device="cpu")
+    cpu_tokens, cpu_logits = greedy_decode(params, batch, cfg, 8)
+    fa.launches = 0
+    tokens, logits = greedy_decode(
+        tree_map(lambda a: a.to(DEVICE), params),
+        tree_map(lambda a: a.to(DEVICE), batch), cfg, 8)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    err = float((logits.cpu() - cpu_logits).abs().max())
+    line = {"phase": "reference", "run": "gemma2-reduced-greedy",
+            "tokens_cuda": tokens.tolist(), "tokens_cpu": cpu_tokens.tolist(),
+            "logits_abs_err": err, "tol_logits_abs": 1e-4,
+            "flash_attention_launches": launches,
+            "layers": cfg.num_layers}
+    emit(line)
+    if not (torch.equal(tokens.cpu(), cpu_tokens) and err <= 1e-4
+            and launches == cfg.num_layers):
+        raise AssertionError(f"the reduced Gemma-2 on the card disagrees "
+                             f"with the CPU: {line}")
+
+
+# The serve phase: Gemma-2 9B as configured (f32), B requests of PROMPT
+# tokens, NEW greedy tokens.  The prompt is longer than the local layers'
+# 4,096-token window, so they mask and decode through the ring buffer.
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 2, 4608, 16
+SERVE_TOL = 5e-3    # decode against forward (JAX's own consistency bound)
+
+
+def serve_phase(fa):
+    """``greedy_decode`` at full width; returns the kernel's launches over
+    the run.  The prefill's time is read by wrapping
+    ``transformer.prefill`` (synchronised at its end)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.training.serve import greedy_decode
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config("gemma2-9b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = tfm.init_params(0, cfg, device=DEVICE)
+    batch = make_batch(1, cfg, SERVE_PROMPT, SERVE_B, kind="prefill",
+                       device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params))
+
+    prefill, marks = tfm.prefill, {}
+
+    def timed_prefill(*args, **kwargs):
+        out = prefill(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks["prefill_end"] = time.perf_counter()
+        marks["prefill_launches"] = fa.launches
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    tfm.prefill = timed_prefill
+    fa.launches = 0
+    try:
+        t0 = time.perf_counter()
+        tokens, logits = greedy_decode(params, batch, cfg, SERVE_NEW)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        tfm.prefill = prefill
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    prefill_s = marks["prefill_end"] - t0
+    decode_s = t1 - marks["prefill_end"]
+
+    # The gate: the decoded path's last logits against forward over the
+    # prompt and the decoded tokens (the kernel's prefill path).
+    full = {"tokens": torch.cat([batch["tokens"], tokens], dim=1)}
+    want, _ = tfm.forward(params, full, cfg)
+    err = float((want[:, -1] - logits[:, 0]).abs().max())
+    line = {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "params": tfm.count_params(cfg),
+            "param_bytes": param_bytes, "batch": SERVE_B,
+            "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+            "init_s": init_s, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / prefill_s,
+            "decode_s": decode_s, "decode_step_ms": decode_s / SERVE_NEW * 1e3,
+            "decode_tokens_per_s": SERVE_B * SERVE_NEW / decode_s,
+            "flash_attention_launches_prefill": marks["prefill_launches"],
+            "flash_attention_launches_decode":
+                launches - marks["prefill_launches"],
+            "peak_mem_bytes": peak, "tokens": tokens.tolist(),
+            "logits_finite": bool(torch.isfinite(logits).all()),
+            "decode_vs_forward_abs_err": err, "tol": SERVE_TOL}
+    emit(line)
+    if marks["prefill_launches"] != cfg.num_layers or \
+            launches != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{marks['prefill_launches']} times in the "
+                             f"prefill and {launches} in all, expected "
+                             f"{cfg.num_layers} and {cfg.num_layers}")
+    if not (line["logits_finite"] and err <= SERVE_TOL):
+        raise AssertionError(f"decode disagrees with forward: {line}")
+    return launches, params, batch, cfg
+
+
+def _profile(label: str, fn) -> None:
+    """``fn()`` under ``torch.profiler``: device time by kernel and the
+    device's idle share of its wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    attn_ms = sum(r[1] for r in rows if "flash_attention_kernel" in r[0])
+    emit({"phase": "profile", "run": label, "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms,
+          "device_idle_share": 1.0 - busy_ms / wall_ms,
+          "flash_attention_device_ms": attn_ms,
+          "device_launches": sum(r[2] for r in rows),
+          "top": [[name[:90], ms, cnt] for name, ms, cnt in rows[:10]]})
+
+
+def serve_profile_phase(params, batch, cfg) -> None:
+    """Where a full-width request's time goes: one prefill, then one
+    decode step (after one unprofiled step), each under the profiler."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.serve import pad_caches
+
+    out = {}
+    _profile("gemma2-9b-prefill", lambda: out.update(
+        zip(("logits", "caches"), tfm.prefill(params, batch, cfg))))
+    prompt = batch["tokens"].shape[1]
+    caches = pad_caches(out.pop("caches"), cfg, prompt + 2, prompt)
+    token = torch.argmax(out.pop("logits")[:, -1], dim=-1)[:, None]
+    tfm.decode_step(params, token, caches, prompt, cfg)
+    _profile("gemma2-9b-decode-step",
+             lambda: tfm.decode_step(params, token, caches, prompt, cfg))
+
+
+def serial_build_seconds(sources) -> float:
+    """Seconds of a cold build of ``sources`` with one ``nvcc`` after
+    another, into a scratch directory: against the build phase's own
+    (parallel, and cold in a fresh checkout), what building together
+    saves."""
+    import tempfile
+
+    from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        for source in sources:
+            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o",
+                            f"{tmp}/{source.stem}.so", str(source)],
+                           check=True, capture_output=True)
+        return time.perf_counter() - t0
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
     sys.path.insert(0, str(ROOT / "src"))
+    # torch.compile (the flex_attention yardstick) keeps its caches in the
+    # checkout's git-ignored build directory.
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     from repro_torch.kernels import cwfl_round as kmod
-    from repro_torch.kernels._build import library_path
-    from repro_torch.kernels.ref import cwfl_round_ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels._build import build, library_path
+    from repro_torch.kernels.ref import cwfl_round_ref, flash_attention_ref
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -512,18 +866,31 @@ def main() -> None:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
+    sources = [kmod.SOURCE, fa.SOURCE]
+    cold = not any(library_path(src).exists() for src in sources)
     t0 = time.perf_counter()
+    build(sources)
     kmod._library()
-    log = library_path(kmod.SOURCE).with_suffix(".log").read_text()
-    emit({"phase": "build", "kernels": ["cwfl_round", "cwfl_round_guard"],
-          "seconds": time.perf_counter() - t0,
-          "library": library_path(kmod.SOURCE).name,
-          "instantiations": log.count("Compiling entry function"),
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    fa._library()
+    seconds = time.perf_counter() - t0
+    libraries = {}
+    for names, source in ((["cwfl_round", "cwfl_round_guard"], kmod.SOURCE),
+                          (["flash_attention"], fa.SOURCE)):
+        log = library_path(source).with_suffix(".log").read_text()
+        libraries[library_path(source).name] = {
+            "kernels": names,
+            "instantiations": log.count("Compiling entry function"),
+            "ptxas": [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln]}
+    emit({"phase": "build",
+          "kernels": ["cwfl_round", "cwfl_round_guard", "flash_attention"],
+          "seconds": seconds, "cold": cold,
+          "serial_cold_seconds": serial_build_seconds(sources),
+          "libraries": libraries})
 
     rows = [kernel_phase(kmod, cwfl_round_ref),
-            kernel_phase(kmod, cwfl_round_ref, guard=True)]
+            kernel_phase(kmod, cwfl_round_ref, guard=True),
+            flash_kernel_phase(fa, flash_attention_ref)]
     reference_phase("paper-static")
     reference_phase("flaky-clients", "flaky-clients")
     dead = reference_phase("dead-cluster", dead_cluster_scenario(),
@@ -531,8 +898,13 @@ def main() -> None:
     if not any(dead):
         raise AssertionError(f"the dead-cluster run handed the kernel no "
                              f"dead row: {dead}")
+    lm_reference_phase(fa)
     rows[0]["launches"], static_acc = slice_phase(kmod)
     rows[1]["launches"] = scenario_phase(kmod, static_acc)
+    rows[2]["launches"], *served = serve_phase(fa)
+    serve_profile_phase(*served)
+    del served
+    torch.cuda.empty_cache()
     profile_phase()
     profile_phase("head-failure")
 

@@ -55,23 +55,26 @@ def _kmeans(features: torch.Tensor, num_clusters: int, first: int,
 
 def _sum_in_xla_order(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis, f32, in the order XLA's CPU reduction takes
-    for a row of n terms: ceil(n/32) blocks of ceil(n/nblocks) terms, each
-    summed in index order, then the block sums in order.  This is XLA's
-    order for n <= 64 and n = 95, 96, 128, 160
-    (`tests/test_torch_offline.py::test_sum_in_xla_order_matches_xla`);
-    for other n above 64 XLA sums in another order, not reproduced here, so
-    a two-member cluster's head may differ from JAX's there (ROADMAP,
-    faults queue)."""
+    for a row of n terms.  Up to 32 terms: in index order.  Above, XLA
+    rewrites the reduction as a reduce-window of 32 terms with stride 32
+    over the row padded to a multiple of 32, the padding split evenly with
+    the smaller half in front, each window summed in index order; then it
+    reduces the ceil(n/32) window sums the same way.  Bitwise against
+    ``jnp.sum`` at every n tested between 1 and 5,000
+    (`tests/test_torch_offline.py::test_sum_in_xla_order_matches_xla`)."""
     n = x.shape[-1]
+    if n <= 32:
+        total = x[..., 0]
+        for i in range(1, n):
+            total = total + x[..., i]
+        return total
     blocks = -(-n // 32)
-    size = -(-n // blocks)
-    total = None
-    for start in range(0, n, size):
-        acc = x[..., start]
-        for i in range(start + 1, min(start + size, n)):
-            acc = acc + x[..., i]
-        total = acc if total is None else total + acc
-    return total
+    front = (32 * blocks - n) // 2
+    sums = []
+    for b in range(blocks):
+        start, stop = max(32 * b - front, 0), min(32 * (b + 1) - front, n)
+        sums.append(_sum_in_xla_order(x[..., start:stop]))
+    return _sum_in_xla_order(torch.stack(sums, dim=-1))
 
 
 def snr_features(link_snr: torch.Tensor, adjacency: torch.Tensor,
@@ -104,9 +107,9 @@ def _plan_from_features(feats: torch.Tensor, link_snr: torch.Tensor,
     # so the f32 rounding of the sum of squares picks the head; the sum is
     # taken in the order XLA takes it on the CPU (`_sum_in_xla_order`).
     # Fed JAX's own features, this elects JAX's heads in all 207 plans of
-    # a sweep (K = 8, 16, 50; C = 2, 3, 5; 23 topology seeds).  The port's
-    # own features round log10 otherwise than XLA and agree in fewer
-    # (ROADMAP, faults queue).
+    # a sweep at K = 8, 16, 50 and all 1,050 of one at K = 65, 80, 100,
+    # 127, 200 (C = 2, 3, 5).  The port's own features round log10
+    # otherwise than XLA and agree in fewer (ROADMAP, faults queue).
     diff = feats[:, None, :] - centroids[None]
     d2 = _sum_in_xla_order(diff * diff)
     d2_masked = torch.where(assign[:, None] == clusters[None], d2,

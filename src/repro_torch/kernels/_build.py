@@ -37,25 +37,39 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 
-def load_library(source: Path) -> ctypes.CDLL:
-    """Load ``source``'s library, compiling it first if it is not built.
-    The compiler's report (``-Xptxas -v``: registers, spills) is kept
-    beside the library as ``<name>.log``."""
-    path = library_path(source)
-    if not path.exists():
+def build(sources) -> None:
+    """Compile every source whose library is not built yet, one ``nvcc``
+    for each, all started together.  The compiler's report (``-Xptxas
+    -v``: registers, spills) is kept beside each library as
+    ``<name>.log``."""
+    jobs = []
+    for source in sources:
+        path = library_path(source)
+        if path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        jobs.append((source, path, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for source, path, tmp, proc in jobs:
+        out, err = proc.communicate()
         try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+                failed.append(f"nvcc failed on {source.name}:\n{out}{err}")
+                continue
+            path.with_suffix(".log").write_text(out + err)
             os.replace(tmp, path)   # atomic: a concurrent loader sees all or nothing
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    return ctypes.CDLL(str(path))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """Load ``source``'s library, compiling it first if it is not built."""
+    build([source])
+    return ctypes.CDLL(str(library_path(source)))

@@ -1,0 +1,109 @@
+"""Blockwise flash attention: wrapper of the Hopper kernel.
+
+Port of `repro.kernels.flash_attention`.  Online-softmax attention with
+grouped KV heads (query head h reads KV head h // G), a causal mask, a
+sliding window, a tanh logit softcap and the pad mask ``k < Skv``:
+
+    s = cap · tanh(((q · D^-0.5) kᵀ) / cap)     f32 sums; the cap if > 0
+    s = −1e30 where masked
+    o = softmax(s) v                           in q's dtype
+
+On a CUDA tensor :func:`flash_attention` launches the kernel in
+``csrc/flash_attention.cu`` (built with ``nvcc`` at first use, see
+`repro_torch.kernels._build`) or raises; on a CPU tensor it runs the plain
+version `repro_torch.kernels.ref.flash_attention_ref`.  There is no
+fallback from one to the other.
+
+A row with no valid key at all has no meaningful value in either
+kernel: the Pallas kernel gives mean(v) (its −1e30 scores tie), this one
+mean(v) over the KV tiles it visits, or 0 where it skips them all; the
+plain version gives 0.  Causal attention over a prompt never has such a
+row, and the tests avoid it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels.ref import flash_attention_ref
+
+SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
+#: The head dimensions the kernel is instantiated for.
+HEAD_DIMS = (32, 64, 128, 256)
+
+#: Kernel launches so far: raised by one per launch, and nowhere else.
+launches = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library(SOURCE)
+    for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v):
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k and v must be (B, heads, S, D)")
+    B, H, _, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k and v must be (B={B}, KV, Skv, D={D}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if H % k.shape[1] != 0:
+        raise ValueError(f"{H} query heads are not a multiple of "
+                         f"{k.shape[1]} KV heads")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q {q.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    cap: float = 0.0) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, KV, Skv, D) with H a multiple of KV.
+    ``window`` > 0 keeps keys k > q − window; ``cap`` > 0 soft-caps the
+    scores.  Returns (B, H, Sq, D) in q's dtype."""
+    global launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   cap=cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
+                         f"{q.device}")
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = (_library().flash_attention_f32 if q.dtype == torch.float32
+          else _library().flash_attention_bf16)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, H, KV, Sq, Skv, D, int(causal), int(window), float(cap),
+                 D ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype})")
+    launches += 1
+    return out
+

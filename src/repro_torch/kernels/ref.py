@@ -36,3 +36,29 @@ def cwfl_round_ref(signals: torch.Tensor, phase1: torch.Tensor,
                  + noise2.to(torch.float32))
     new = (broadcast.to(torch.float32) @ theta_bar).to(signals.dtype)
     return new, torch.mean(theta_bar, dim=0)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        cap: float = 0.0) -> torch.Tensor:
+    """Exact softmax attention, f32 throughout.  q: (B, H, Sq, D); k, v:
+    (B, KV, Skv, D); query head h reads KV head h // (H / KV).  A row with
+    no valid key gives 0.  Returns (B, H, Sq, D) in q's dtype."""
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    qg = (q.to(torch.float32) * (D ** -0.5)).reshape(B, KV, H // KV, Sq, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32))
+    if cap > 0.0:
+        s = cap * torch.tanh(s / cap)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    s.masked_fill_(~mask, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    p.masked_fill_(torch.isnan(p), 0.0)     # fully-masked rows -> 0
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    return o.reshape(B, H, Sq, D).to(q.dtype)

@@ -135,12 +135,14 @@ def test_two_member_cluster_elects_its_lower_index(seed, num_clusters,
     np.testing.assert_array_equal(plan.heads.numpy(), np.asarray(ref.heads))
 
 
-@pytest.mark.parametrize("n", [5, 16, 32, 33, 50, 63, 64, 95, 96, 128,
-                               160])
+@pytest.mark.parametrize("n", [5, 16, 32, 33, 50, 63, 64, 65, 80, 95, 96,
+                               100, 127, 128, 160, 200, 1025, 5000])
 def test_sum_in_xla_order_matches_xla(n):
     """The head election's sum of squares, bitwise against XLA's eager CPU
-    reduction, at row lengths (the client count K) where the port takes
-    XLA's order: n <= 64, and n = 95, 96, 128, 160.  The rows are the
+    reduction, at row lengths (the client count K) in index order (n <=
+    32), in reduce-window blocks of 32 with the padding split front and
+    back (65, 80, 100, 200), with none (64, 96, 128, 160) or one term of
+    it (127), and two levels of blocks (1025, 5000).  The rows are the
     election's own form, squared differences of features and centroids."""
     rng = np.random.default_rng(n)
     feats = (rng.standard_normal((50, 1, n)) * 30).astype(np.float32)
@@ -149,6 +151,28 @@ def test_sum_in_xla_order_matches_xla(n):
     diff = torch.from_numpy(feats) - torch.from_numpy(cents)
     np.testing.assert_array_equal(tcl._sum_in_xla_order(diff * diff).numpy(),
                                   np.asarray(ref))
+
+
+@pytest.mark.parametrize("K,num_clusters,seed", [(65, 5, 26), (65, 5, 57),
+                                                 (127, 5, 5)])
+def test_head_election_above_64_clients_matches_jax(K, num_clusters, seed):
+    """Above 64 clients XLA sums each distance in reduce-window blocks;
+    fed JAX's features, the port elects JAX's eager heads.  Each case has
+    a two-member cluster, whose head the f32 rounding of that sum picks:
+    three of the four such plans in a sweep of 1,050 at K = 65, 80, 100,
+    127, 200, C = 2, 3, 5, topology seeds 0..69, all of which agree."""
+    cfg = jtopo.TopologyConfig(num_clients=K)
+    _, _, snr, adj = _jax_topology_arrays(jax.random.PRNGKey(seed), cfg)
+    key = jax.random.PRNGKey(11)
+    ref = jcl.make_cluster_plan(snr, adj, num_clusters, key)
+    sizes = np.bincount(np.asarray(ref.assignment), minlength=num_clusters)
+    assert 2 in sizes
+    first = int(jax.random.randint(key, (), 0, K))
+    plan = tcl._plan_from_features(_t(jcl.snr_features(snr, adj)), _t(snr),
+                                   num_clusters, first, 50)
+    np.testing.assert_array_equal(plan.assignment.numpy(),
+                                  np.asarray(ref.assignment))
+    np.testing.assert_array_equal(plan.heads.numpy(), np.asarray(ref.heads))
 
 
 @pytest.mark.parametrize("case", ["random0", "random1", "random2",
