@@ -15,7 +15,11 @@ Phases, each printed as one JSON object per line:
    at the shapes of the main paths and a few ragged ones, with its time, the
    plain version's time and the least time the card could take (its bound):
    ``cwfl_round`` and its guarded variant ``cwfl_round_guard``, the latter
-   on signals with NaN and ±inf and a dead Ã row; ``flash_attention`` at
+   on signals with NaN and ±inf and a dead Ã row; ``ota_aggregate`` (the
+   phase-1 OTA MAC) at the paper's MNIST width in f32 and bf16, JAX's
+   ragged shape, and the shapes that take its other routes, its output
+   poisoned with NaN before each launch, with ``torch.addmm`` as its
+   library yardstick; ``flash_attention`` at
    Gemma-2 9B's prefill shapes (f32 and bf16, local and global layers,
    with and without the softcap), a ragged GQA shape, and a small shape
    for each head dim and dtype; beside it one library call on the same
@@ -32,16 +36,24 @@ Phases, each printed as one JSON object per line:
    width of the paper's MNIST model (K=50 clients, C=3 clusters, the
    784-200-100-64-10 MLP, d=184,214) for a few rounds, with every kernel's
    launch count over that run;
-6. scenario — the same width under ``head-failure``, ``flaky-clients``,
+6. dist — the distribution slice at the same width, on the slice's
+   paper-static state and its params after one round of local training:
+   ``phase1_ota_flat`` (the ``ota_aggregate`` kernel), ``cwfl_aggregate_
+   flat`` and ``ota_aggregate_op`` on the card against the CPU and the
+   tree route, ``make_fl_plan(50, 3)`` on the card against the CPU; then,
+   in an NCCL process group of one rank (a ``file://`` store under
+   ``build/``), ``hierarchical_ota_allreduce`` on a one-client plan and
+   ``run_rounds(..., shard="clients")`` against the slice's run;
+7. scenario — the same width under ``head-failure``, ``flaky-clients``,
    ``mobile-fading`` and ``cluster-churn``: each fault round through the
    guarded kernel and no other, per-round live nodes, heads and mask mass,
    the test accuracy held to floors derived from the JAX package's runs;
-7. serve — ``greedy_decode`` of Gemma-2 9B at its published width (f32,
+8. serve — ``greedy_decode`` of Gemma-2 9B at its published width (f32,
    random weights drawn on the card): 2 requests of 4,608-token prompts,
    16 greedy tokens; prefill seconds, decode tokens/s, the kernel's
    launches (one per layer in the prefill, none in decode), peak memory,
    and the last logits held against ``forward`` over the same tokens;
-8. profile — under ``torch.profiler``: one Gemma-2 9B prefill and one
+9. profile — under ``torch.profiler``: one Gemma-2 9B prefill and one
    decode step; then the static slice and ``head-failure``, the window
    on the rounds after the first; device time by kernel, launches and
    the device's idle share.
@@ -58,6 +70,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -102,6 +115,26 @@ def time_cold(fn, reps: int = 30, flush_bytes: int = 256 << 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, reps: int = 20, flush_bytes: int = 256 << 20) -> float:
+    """Mean device ms of ``fn()``'s kernels under ``torch.profiler``, the
+    L2 flushed before each call (the flush's own fill kernel left out):
+    ``time_cold`` without the launch's host and event overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(flush_bytes // 4, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "FillFunctor" not in e.key) / reps / 1e3
 
 
 def round_inputs(K: int, C: int, d: int, dtype, seed: int):
@@ -203,6 +236,120 @@ def kernel_phase(kmod, ref_fn, guard: bool = False):
             raise AssertionError(f"{name} disagrees with its plain "
                                  f"version at {label}: {line}")
     return row
+
+
+# ota_aggregate at the shape phase 1 gives it at the paper's MNIST width
+# (K=50 clients, C=3 clusters, d=184,214) in f32 and in bf16 (weights and
+# noise in the signals' dtype, as JAX's tests pass them), JAX's ragged shape
+# with f32 and with bf16 signals (f32 noise: the mixed instantiation), and
+# two shapes that take the wrapper's other routes: more clusters than one
+# launch holds (two launches) and weights beyond 48 KiB of shared memory.
+OTA_SHAPES = (
+    # label, K, C, d, signals dtype, weights and noise dtype
+    ("main", 50, 3, 184214, torch.float32, torch.float32),
+    ("main_bf16", 50, 3, 184214, torch.bfloat16, torch.bfloat16),
+    ("ragged", 16, 4, 2049, torch.float32, torch.float32),
+    ("ragged_bf16_f32noise", 16, 4, 2049, torch.bfloat16, torch.float32),
+    ("many_clusters", 40, 20, 3001, torch.float32, torch.float32),
+    ("wide_k", 1000, 16, 777, torch.float32, torch.float32),
+)
+# The JAX package's tolerances for this kernel (tests/test_kernels.py),
+# absolute and relative: f32 sums in another order; bf16 outputs.
+OTA_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def poisoned_launch(fn, out_shape, dtype):
+    """``fn()``, whose output of ``out_shape`` is allocated into memory
+    filled with NaN just before: an element the kernel does not write
+    stays NaN.  The caching allocator hands the wrapper's ``torch.empty``
+    the block just freed (its cache emptied first, so that block is the
+    only free one); the output's address proves it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    bait = torch.full(out_shape, math.nan, dtype=dtype, device=DEVICE)
+    ptr = bait.data_ptr()
+    del bait
+    out = fn()
+    if out.data_ptr() != ptr:
+        raise AssertionError("the output was not allocated into the "
+                             "poisoned block; the check would prove nothing")
+    return out
+
+
+def ota_kernel_phase(omod, ref_fn):
+    """ota_aggregate against its plain version at OTA_SHAPES, with
+    ``torch.addmm(N, W, S)`` — one cuBLAS call computing the same function
+    (TF32 off) — beside it; returns the main-shape row of the kernels
+    summary (without its launch count)."""
+    bw, peak_f32, _ = card_peaks(torch.cuda.get_device_name(0))
+    rows = {}
+    for label, K, C, d, dtype, wdtype in OTA_SHAPES:
+        g = torch.Generator(DEVICE).manual_seed(K + C + d)
+        s = torch.randn(K, d, generator=g, device=DEVICE).to(dtype)
+        w = torch.rand(C, K, generator=g, device=DEVICE)
+        w = (w / w.sum(1, keepdim=True)).to(wdtype)
+        n = (1e-2 * torch.randn(C, d, generator=g, device=DEVICE)).to(wdtype)
+        ref = ref_fn(s, w, n)
+        out = poisoned_launch(lambda: omod.ota_aggregate(s, w, n), (C, d),
+                              dtype)
+        torch.cuda.synchronize()
+        tol = OTA_TOL[dtype]
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        ok = bool(torch.all(diff <= tol + tol * ref.float().abs()))
+        line = {"phase": "kernel", "kernel": "ota_aggregate", "shape": label,
+                "K": K, "C": C, "d": d, "dtype": str(dtype),
+                "weights_noise_dtype": str(wdtype),
+                "launches_a_call": -(-C // omod.MAX_CLUSTERS),
+                "max_abs_err": err, "tol_abs_and_rel": tol,
+                "finite": bool(torch.isfinite(out.float()).all())}
+        if label in ("main", "main_bf16", "ragged"):
+            # The least work: read S and N once, write y once (W is
+            # O(C·K)); 2·C·K + C f32 operations a column on the CUDA cores.
+            nbytes = (s.numel() * s.element_size()
+                      + n.numel() * n.element_size()
+                      + C * d * s.element_size() + 4 * C * K)
+            flops = d * (2 * C * K + C)
+            bound_bytes, bound_ops = nbytes / bw * 1e3, flops / peak_f32 * 1e3
+            ms = time_cold(lambda: omod.ota_aggregate(s, w, n))
+            plain_ms = time_cold(lambda: ref_fn(s, w, n))
+            wl = w.to(dtype)
+            lib = lambda: torch.addmm(n.to(dtype), wl, s)   # noqa: E731
+            lib_err = float((lib().float() - ref.float()).abs().max())
+            line.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
+                        bound_ms_bytes=bound_bytes,
+                        bound_ms_operations=bound_ops,
+                        achieved_bytes_per_s=nbytes / (ms * 1e-3),
+                        device_ms=device_ms(
+                            lambda: omod.ota_aggregate(s, w, n)),
+                        library="torch.addmm", library_max_abs_err=lib_err,
+                        library_ms=time_cold(lib),
+                        library_device_ms=device_ms(lib))
+            rows[label] = line
+        emit(line)
+        if not (ok and line["finite"]):
+            raise AssertionError(f"ota_aggregate disagrees with its plain "
+                                 f"version at {label}: {line}")
+        if line.get("library_max_abs_err", 0.0) > tol:
+            raise AssertionError(f"the library yardstick computes another "
+                                 f"function at {label}: {line}")
+    main, bf16 = rows["main"], rows["main_bf16"]
+    bound = max(main["bound_ms_bytes"], main["bound_ms_operations"])
+    return {"name": "ota_aggregate", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ota_aggregate.cu",
+            "replaces": "src/repro/kernels/ota_aggregate.py:38",
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bound,
+            "bound_by": ("bytes" if main["bound_ms_bytes"]
+                         >= main["bound_ms_operations"] else "operations"),
+            "library_ms": main["library_ms"], "library": "torch.addmm",
+            "device_ms": main["device_ms"],
+            "library_device_ms": main["library_device_ms"],
+            "ms_bf16": bf16["ms"], "device_ms_bf16": bf16["device_ms"],
+            "plain_ms_bf16": bf16["plain_ms"],
+            "bound_ms_bf16": max(bf16["bound_ms_bytes"],
+                                 bf16["bound_ms_operations"]),
+            "library_ms_bf16": bf16["library_ms"]}
 
 
 def dead_cluster_scenario():
@@ -364,7 +511,188 @@ def slice_phase(kmod, rounds: int = 5):
     if not h["test_acc"][-1] >= 0.7:
         raise AssertionError(f"last-round test accuracy "
                              f"{h['test_acc'][-1]} < 0.7")
-    return launches, h["test_acc"]
+    return launches, h
+
+
+def state_to(state, device):
+    """A `CWFLState` with its tensors on ``device``."""
+    import dataclasses
+
+    def moved(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to(device)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    return dataclasses.replace(moved(state), plan=moved(state.plan))
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, both on the CPU in f32."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def dist_phase(omod, kmod, static, rounds: int = 5) -> int:
+    """The distribution slice at the paper's MNIST width, on the slice
+    phase's paper-static state (the same draws) and its K-stacked params
+    after one round of local training; returns ``ota_aggregate``'s
+    launches on this path (one per call that reaches it, counted from 0).
+
+    ``phase1_ota_flat``, ``cwfl_aggregate_flat`` and ``ota_aggregate_op``
+    run on the card, then again on the CPU (or through the tree route) on
+    the same inputs and unit normals; ``make_fl_plan(50, 3)`` runs on the
+    card and on the CPU from the same topology and first centre.  Then an
+    NCCL process group of one rank: NCCL takes one rank a device, and
+    this card is one rank.  In it ``hierarchical_ota_allreduce`` runs on a
+    one-client plan (against the same call over a gloo group of the CPU),
+    and ``run_rounds(..., shard="clients")`` reruns the slice's run: its
+    loss and accuracy must agree with the unsharded run within the JAX
+    package's own tolerances (tests/test_sim_sharded.py)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import TopologyConfig, cwfl, make_topology
+    from repro_torch.dist import fl_integration as fl
+    from repro_torch.dist import ota_collectives as oc
+    from repro_torch.kernels.ops import ota_aggregate_op
+    from repro_torch.optim import sgd
+    from repro_torch.sim import TorchDraws, run_rounds
+    from repro_torch.strategies import get_strategy
+    from repro_torch.training import FLConfig
+    from repro_torch.training.local import make_local_runner
+    from repro_torch.utils import tree_leaves, tree_map, tree_size
+
+    workload = full_width_workload()
+    init, _, loss, topo, xs, ys, _, _ = workload
+    K, n_k = int(xs.shape[0]), int(xs.shape[1])
+    cfg = FLConfig(rounds=rounds, num_clusters=3, snr_db=40.0, seed=0)
+    draws = TorchDraws(cfg.seed, DEVICE)
+    state = get_strategy("cwfl").init(topo, draws, cfg, snr_db=cfg.snr_db)
+    params = draws.init_params(init)
+    stacked = tree_map(lambda x: x.expand((K,) + x.shape).clone(), params)
+    steps = n_k // cfg.batch_size
+    opt = sgd(cfg.lr)
+    local_run = make_local_runner(loss, opt, cfg.batch_size, steps)
+    stacked, _, _ = local_run(stacked, opt.init(stacked), xs, ys,
+                              draws.batch_indices(0, K, steps,
+                                                  cfg.batch_size, n_k))
+    d = tree_size(params)
+    flat = torch.cat([x.reshape(K, -1) for x in tree_leaves(stacked)], 1)
+    unit1, unit2 = draws.phase_noise(0, cfg.num_clusters, d)
+    a, eff_std, _, _, _ = cwfl.round_coefficients(state, flat)
+    op_std = float(eff_std.mean())
+
+    # The path: every call that reaches a kernel, counted from 0.
+    torch.cuda.synchronize()
+    omod.launches = kmod.launches = 0
+    y = oc.phase1_ota_flat(flat, state, unit1)
+    new, cons = oc.cwfl_aggregate_flat(flat, state, (unit1, unit2))
+    per_cluster = ota_aggregate_op(stacked, a, unit1, op_std)
+    torch.cuda.synchronize()
+    launches = {"ota_aggregate": omod.launches, "cwfl_round": kmod.launches}
+
+    cpu = state_to(state, "cpu")
+    y_cpu = oc.phase1_ota_flat(flat.cpu(), cpu, unit1.cpu())
+    tree_new, tree_cons = cwfl.aggregate(stacked, state, (unit1, unit2))
+    per_cluster_cpu = ota_aggregate_op(tree_map(lambda x: x.cpu(), stacked),
+                                       a.cpu(), unit1.cpu(), op_std)
+    errs = {
+        "phase1_ota_flat_vs_cpu_rel": rel_err(y, y_cpu),
+        "cwfl_aggregate_flat_vs_tree_abs": max(
+            float((new - torch.cat([x.reshape(K, -1) for x in
+                                    tree_leaves(tree_new)], 1)).abs().max()),
+            float((cons - torch.cat([x.reshape(-1) for x in
+                                     tree_leaves(tree_cons)])).abs().max())),
+        "ota_aggregate_op_vs_cpu_rel": max(
+            rel_err(g, c) for g, c in zip(tree_leaves(per_cluster),
+                                          tree_leaves(per_cluster_cpu)))}
+    shapes_ok = (tuple(y.shape) == (cfg.num_clusters, d)
+                 and all(tuple(g.shape) == (cfg.num_clusters,) + p.shape
+                         for g, p in zip(tree_leaves(per_cluster),
+                                         tree_leaves(params))))
+
+    # The FL plan, on the card and on the CPU from the same draws.
+    topo_cpu = make_topology(0, TopologyConfig(num_clients=K), device="cpu")
+    plans = {dev: fl.make_fl_plan(K, 3, topology=topo_cpu,
+                                  draws=TorchDraws(0, "cpu"), device=dev)
+             for dev in (DEVICE, "cpu")}
+    own = fl.make_fl_plan(K, 3, seed=0, device=DEVICE)
+    plan_ok = (np.array_equal(plans[DEVICE].assignment,
+                              plans["cpu"].assignment)
+               and np.array_equal(plans[DEVICE].heads, plans["cpu"].heads))
+    errs["make_fl_plan_beta_rel"] = rel_err(
+        *(torch.from_numpy(plans[dev].beta) for dev in (DEVICE, "cpu")))
+    errs["make_fl_plan_noise_std_rel"] = abs(
+        plans[DEVICE].noise_std / plans["cpu"].noise_std - 1)
+
+    # The collectives, in an NCCL group of one rank.
+    store = ROOT / "build" / f"dist-store-{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        gloo = dist.new_group(backend="gloo")
+        plan1 = fl.make_fl_plan(1, 1, seed=0, device=DEVICE)
+        noise1 = (unit1[:1], unit2[:1])
+        x = flat[0]
+        coll = fl.hierarchical_ota_allreduce(x, plan1, noise1)
+        coll_cpu = fl.hierarchical_ota_allreduce(
+            x.cpu(), plan1, tuple(u.cpu() for u in noise1), group=gloo)
+        errs["hierarchical_vs_cpu_rel"] = rel_err(coll, coll_cpu)
+        errs["hierarchical_vs_input_rel"] = rel_err(coll, x)
+
+        stamps = []
+        t0 = time.perf_counter()
+        h = run_rounds(*workload, cfg, device=DEVICE, shard="clients",
+                       progress=lambda *_: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    loss_s, acc_s = h["train_loss"].tolist(), h["test_acc"].tolist()
+    loss_u, acc_u = static["train_loss"], static["test_acc"]
+    sharded_ok = all(abs(a - b) <= 1e-6 + 1e-5 * abs(b)
+                     for a, b in zip(loss_s, loss_u)) and all(
+        abs(a - b) <= 1e-2 for a, b in zip(acc_s, acc_u))
+    line = {"phase": "dist", "K": K, "C": cfg.num_clusters, "d": d,
+            "launches": launches, "errors": errs,
+            "tol": {"phase1_ota_flat_vs_cpu_rel": 1e-5,
+                    "cwfl_aggregate_flat_vs_tree_abs": F32_ATOL,
+                    "ota_aggregate_op_vs_cpu_rel": 1e-5,
+                    "make_fl_plan_rel": 1e-5,
+                    "hierarchical_vs_cpu_rel": 1e-6,
+                    "sharded_loss": "rtol 1e-5, atol 1e-6",
+                    "sharded_acc_abs": 1e-2},
+            "plan_heads": plans[DEVICE].heads.tolist(),
+            "plan_noise_std": plans[DEVICE].noise_std,
+            "own_plan_clusters": own.num_clusters,
+            "sharded_rounds": rounds, "sharded_wall_s": wall,
+            "sharded_rounds_per_s": rounds / wall,
+            "sharded_steady_rounds_per_s": (rounds - 1) / (stamps[-1]
+                                                           - stamps[0]),
+            "sharded_train_loss": loss_s, "unsharded_train_loss": loss_u,
+            "sharded_test_acc": acc_s, "unsharded_test_acc": acc_u}
+    emit(line)
+    if launches != {"ota_aggregate": 2, "cwfl_round": 1}:
+        raise AssertionError(f"kernel launches on the dist path {launches}, "
+                             f"expected 2 of ota_aggregate (phase1_ota_flat"
+                             f", ota_aggregate_op) and 1 of cwfl_round")
+    if not (shapes_ok and plan_ok and own.num_clusters == 3
+            and np.isclose(own.beta.sum(), 1.0)
+            and all(torch.isfinite(t).all() for t in (y, new, cons, coll))
+            and errs["phase1_ota_flat_vs_cpu_rel"] <= 1e-5
+            and errs["cwfl_aggregate_flat_vs_tree_abs"] <= F32_ATOL
+            and errs["ota_aggregate_op_vs_cpu_rel"] <= 1e-5
+            and errs["make_fl_plan_beta_rel"] <= 1e-5
+            and errs["make_fl_plan_noise_std_rel"] <= 1e-5
+            and errs["hierarchical_vs_cpu_rel"] <= 1e-6 and sharded_ok):
+        raise AssertionError(f"the dist phase failed a check: {line}")
+    return launches["ota_aggregate"]
 
 
 # The scenarios driven at full width.  Their floors come from the JAX
@@ -848,8 +1176,10 @@ def main() -> None:
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     from repro_torch.kernels import cwfl_round as kmod
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ota_aggregate as omod
     from repro_torch.kernels._build import build, library_path
-    from repro_torch.kernels.ref import cwfl_round_ref, flash_attention_ref
+    from repro_torch.kernels.ref import (cwfl_round_ref, flash_attention_ref,
+                                         ota_aggregate_ref)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -866,15 +1196,17 @@ def main() -> None:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    sources = [kmod.SOURCE, fa.SOURCE]
+    sources = [kmod.SOURCE, omod.SOURCE, fa.SOURCE]
     cold = not any(library_path(src).exists() for src in sources)
     t0 = time.perf_counter()
     build(sources)
     kmod._library()
+    omod._library()
     fa._library()
     seconds = time.perf_counter() - t0
     libraries = {}
     for names, source in ((["cwfl_round", "cwfl_round_guard"], kmod.SOURCE),
+                          (["ota_aggregate"], omod.SOURCE),
                           (["flash_attention"], fa.SOURCE)):
         log = library_path(source).with_suffix(".log").read_text()
         libraries[library_path(source).name] = {
@@ -883,13 +1215,15 @@ def main() -> None:
             "ptxas": [ln.strip() for ln in log.splitlines()
                       if "registers" in ln or "spill" in ln]}
     emit({"phase": "build",
-          "kernels": ["cwfl_round", "cwfl_round_guard", "flash_attention"],
+          "kernels": ["cwfl_round", "cwfl_round_guard", "ota_aggregate",
+                      "flash_attention"],
           "seconds": seconds, "cold": cold,
           "serial_cold_seconds": serial_build_seconds(sources),
           "libraries": libraries})
 
     rows = [kernel_phase(kmod, cwfl_round_ref),
             kernel_phase(kmod, cwfl_round_ref, guard=True),
+            ota_kernel_phase(omod, ota_aggregate_ref),
             flash_kernel_phase(fa, flash_attention_ref)]
     reference_phase("paper-static")
     reference_phase("flaky-clients", "flaky-clients")
@@ -899,9 +1233,10 @@ def main() -> None:
         raise AssertionError(f"the dead-cluster run handed the kernel no "
                              f"dead row: {dead}")
     lm_reference_phase(fa)
-    rows[0]["launches"], static_acc = slice_phase(kmod)
-    rows[1]["launches"] = scenario_phase(kmod, static_acc)
-    rows[2]["launches"], *served = serve_phase(fa)
+    rows[0]["launches"], static = slice_phase(kmod)
+    rows[2]["launches"] = dist_phase(omod, kmod, static)
+    rows[1]["launches"] = scenario_phase(kmod, static["test_acc"])
+    rows[3]["launches"], *served = serve_phase(fa)
     serve_profile_phase(*served)
     del served
     torch.cuda.empty_cache()

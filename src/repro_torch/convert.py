@@ -10,7 +10,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.clustering import ClusterPlan
+from repro_torch.core.cwfl import CWFLState
 from repro_torch.core.topology import Topology, TopologyConfig, link_stats
+from repro_torch.dist.fl_integration import FLPlan
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -48,3 +50,33 @@ def plan_from_arrays(assignment, heads, membership, cluster_snr, head_mask,
         membership=_tensor(membership, device, torch.float32),
         cluster_snr=_tensor(cluster_snr, device, torch.float32),
         head_mask=_tensor(head_mask, device, torch.float32))
+
+
+def cwfl_state_from_arrays(plan, client_power, total_power,
+                           head_noise_std, consensus_noise_std, mix, *,
+                           device) -> CWFLState:
+    """A `CWFLState` from the reference's arrays, copied as they are;
+    ``plan`` holds the five arrays of :func:`plan_from_arrays`, in its
+    order."""
+    return CWFLState(
+        plan=plan_from_arrays(*plan, device=device),
+        client_power=_tensor(client_power, device, torch.float32),
+        total_power=float(total_power),
+        head_noise_std=_tensor(head_noise_std, device, torch.float32),
+        consensus_noise_std=_tensor(consensus_noise_std, device,
+                                    torch.float32),
+        mix=_tensor(mix, device, torch.float32))
+
+
+def fl_plan_from_arrays(fields: dict, state: CWFLState) -> FLPlan:
+    """A port `FLPlan` from the reference's: ``fields`` holds every field
+    of JAX's ``FLPlan`` but ``state`` (numpy arrays and Python numbers),
+    ``state`` its ``CWFLState`` carried by :func:`cwfl_state_from_arrays`,
+    so both packages compute from the same plan."""
+    arrays = {name: np.array(fields[name]) for name in (
+        "beta", "assignment", "heads", "mix", "cluster_weights",
+        "phase1_rel_std", "phase2_rel_std")}
+    return FLPlan(num_clients=int(fields["num_clients"]),
+                  num_clusters=int(fields["num_clusters"]),
+                  noise_std=float(fields["noise_std"]),
+                  snr_db=float(fields["snr_db"]), state=state, **arrays)

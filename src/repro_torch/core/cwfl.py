@@ -185,14 +185,18 @@ def participation_weights(state: CWFLState, mask: Optional[torch.Tensor],
     return torch.where(forced > 0, 1.0, m)
 
 
-def round_coefficients(state: CWFLState, stacked_params,
+def round_coefficients(state: CWFLState, stacked_params=None,
                        mask: Optional[torch.Tensor] = None,
-                       alive: Optional[torch.Tensor] = None):
+                       alive: Optional[torch.Tensor] = None,
+                       mean_sq: Optional[torch.Tensor] = None):
     """The weight set of one sync round: ``(Ã, eff_std1, B̃, κ, M)`` — the
     precoded, renormalized phase-1 amplitudes with their receiver noise
     std, the consensus mix with its equivalent noise std, and the phase-3
     downlink matrix.  The eq. (5) amplitude clip is estimated from the
-    transmitted signals' power (``stacked_params``).
+    transmitted signals' power: ``stacked_params`` (any K-stacked tree, a
+    flat (K, d) matrix included), or ``mean_sq``, the (K,) per-channel-use
+    powers, for a caller that does not hold every client (a client-sharded
+    rank, `repro_torch.sim.sharded`, gathers them).
 
     ``mask``: optional (K,) {0,1} participation; an absent client gets a
     zero column in Ã before the row renormalization, so each head's sum is
@@ -206,7 +210,13 @@ def round_coefficients(state: CWFLState, stacked_params,
     part = participation_weights(state, mask, alive=alive)
     if part is not None:
         A = A * part[None, :]
-    A = A * precode_scale(state, per_client_mean_sq(stacked_params))[None, :]
+    if mean_sq is None:
+        if stacked_params is None:
+            raise ValueError("round_coefficients needs stacked_params or "
+                             "mean_sq: the eq. (5) amplitude clip is "
+                             "estimated from the transmitted signals' power")
+        mean_sq = per_client_mean_sq(stacked_params)
+    A = A * precode_scale(state, mean_sq)[None, :]
 
     # Receiver scaling (eq. 8): AWGN std σ_c/sqrt(P); weights and noise are
     # both divided by the phase-1 row sums.

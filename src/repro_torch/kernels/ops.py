@@ -1,14 +1,35 @@
 """Model-layout wrappers of the port's kernels (port of `repro.kernels.ops`).
 
-``flash_attention_op`` takes the model's (B, S, heads, D) layout; the
-kernel takes (B, heads, S, D).  ``ota_aggregate_op`` waits for the
-``dist/`` slice (ROADMAP).
+``ota_aggregate_op`` runs CWFL's phase-1 MAC over a K-stacked parameter
+tree; ``flash_attention_op`` takes the model's (B, S, heads, D) layout,
+the kernel (B, heads, S, D).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ota_aggregate import ota_aggregate
+from repro_torch.utils.pytree import (tree_leaves, tree_map,
+                                      tree_unflatten_vector)
+
+
+def ota_aggregate_op(stacked_params, weights: torch.Tensor,
+                     noise: torch.Tensor, noise_std: float):
+    """CWFL phase 1 over a K-stacked parameter tree.
+
+    stacked_params: tree with (K, ...) leaves; weights: (C, K); noise:
+    (C, d) unit normals, columns in the flat leaf order (JAX draws
+    ``normal(key, (C, d))`` in the flat dtype), scaled by ``noise_std``.
+    Returns a tree with (C, ...) leaves: the per-cluster aggregates.
+    """
+    leaves = tree_leaves(stacked_params)
+    K = leaves[0].shape[0]
+    flat = torch.cat([x.reshape(K, -1) for x in leaves], dim=1)    # (K, d)
+    agg = ota_aggregate(flat, weights.to(flat.dtype),
+                        noise_std * noise.to(flat.dtype))         # (C, d)
+    return tree_unflatten_vector(agg, tree_map(lambda x: x[0],
+                                               stacked_params))
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,6 +9,17 @@ from __future__ import annotations
 import torch
 
 
+def ota_aggregate_ref(signals: torch.Tensor, weights: torch.Tensor,
+                      noise: torch.Tensor) -> torch.Tensor:
+    """Phase-1 OTA MAC for all clusters at once: y = W @ S + N in f32.
+
+    signals: (K, d) channel-inverted client parameter vectors; weights:
+    (C, K) per-(cluster, client) amplitudes (0 for non-members); noise:
+    (C, d) receiver noise.  Returns (C, d) in the signals' dtype."""
+    return (weights.to(torch.float32) @ signals.to(torch.float32)
+            + noise.to(torch.float32)).to(signals.dtype)
+
+
 def cwfl_round_ref(signals: torch.Tensor, phase1: torch.Tensor,
                    noise1: torch.Tensor, phase2: torch.Tensor,
                    noise2: torch.Tensor, broadcast: torch.Tensor,

@@ -69,6 +69,30 @@ def _tree_where(mask: torch.Tensor, a, b):
         for x, y in zip(a_leaves, b_leaves)])
 
 
+def _prepare(init_fn: Callable, loss_fn: Callable, topology: Topology, cfg,
+             strategy, draws: Draws, n_k: int, device):
+    """A run's offline strategy state, initial consensus, optimizer and
+    local runner, drawn in the same order by the unsharded loop and the
+    client-sharded one (`repro_torch.sim.sharded`)."""
+    if cfg.mu_prox > 0:
+        raise NotImplementedError("FedProx (mu_prox > 0) is not ported yet")
+    # E epochs of minibatch SGD over each client's n_k examples.
+    steps = max(cfg.local_epochs * (n_k // cfg.batch_size), 1)
+    optimizer = sgd(cfg.lr)
+    local_run = make_local_runner(loss_fn, optimizer, cfg.batch_size, steps)
+    state = strategy.init(topology, draws, cfg, snr_db=cfg.snr_db)
+    consensus = tree_map(lambda x: x.to(device), draws.init_params(init_fn))
+    return state, consensus, optimizer, local_run, steps
+
+
+def _history(losses: list, accs: list, consensus) -> dict[str, Any]:
+    """The per-round metrics of a run, stacked on the device."""
+    loss, acc = torch.stack(losses), torch.stack(accs)
+    return {"round": np.arange(1, len(losses) + 1), "train_loss": loss,
+            "test_acc": acc, "final_params": consensus,
+            "avg_acc": torch.mean(acc), "final_acc": acc[-1]}
+
+
 class _Dynamics:
     """A dynamic scenario's processes over one trajectory, and its sync
     (the JAX engine's ``dynamic_sync``).  Each round, in JAX's order: the
@@ -192,7 +216,8 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
                topo_cfg: Optional[TopologyConfig] = None,
                progress: Optional[Callable] = None,
                draws: Optional[Draws] = None,
-               device=None) -> dict[str, Any]:
+               device=None, shard: Optional[str] = None,
+               group=None) -> dict[str, Any]:
     """Run one FL trajectory; returns a history of per-round metrics.
 
     ``xs, ys``: stacked client shards (K, N_k, ...).  ``loss_fn(params, x,
@@ -204,6 +229,10 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
     every round).  ``draws``: the run's random draws (default: `TorchDraws`
     seeded from ``cfg.seed`` on ``device``).  ``device``: where the run
     happens (``None`` = the GPU); inputs are moved there.
+    ``shard="clients"``: split the K clients over the ranks of the
+    ``torch.distributed`` process group ``group`` (``None``: the default
+    group), one process a rank (`repro_torch.sim.sharded.
+    run_rounds_client_sharded`); static CWFL scenarios only.
 
     The history holds per-round ``train_loss`` and ``test_acc`` (T,) and the
     final consensus; a dynamic scenario adds ``scenario``: per round, the
@@ -213,8 +242,6 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
     if isinstance(scenario, str):
         scenario = get_scenario(scenario)
     scenario = scenario or Scenario()
-    if cfg.mu_prox > 0:
-        raise NotImplementedError("FedProx (mu_prox > 0) is not ported yet")
     strategy = get_strategy(cfg.strategy)
     if scenario.strategy is not None and scenario.strategy != strategy.name:
         warnings.warn(
@@ -223,6 +250,17 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
             f"{strategy.name!r}; pass FLConfig(strategy="
             f"{scenario.strategy!r}) to honor the scenario's pin",
             UserWarning, stacklevel=2)
+    if shard is not None:
+        if shard != "clients":
+            raise ValueError(
+                f"run_rounds shards the client axis only (shard='clients'); "
+                f"got {shard!r} — trajectory sharding (shard='mc') waits "
+                f"for run_monte_carlo")
+        from repro_torch.sim import sharded
+        return sharded.run_rounds_client_sharded(
+            init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test,
+            cfg, scenario=scenario, group=group, progress=progress,
+            draws=draws, device=device)
     if scenario.channel.evolves_geometry and topo_cfg is None:
         raise ValueError(
             "dynamic-channel scenarios need the TopologyConfig that "
@@ -236,15 +274,8 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
         y_ev = y_test[: cfg.eval_samples].to(device)
         draws = draws if draws is not None else TorchDraws(cfg.seed, device)
         K, n_k = xs.shape[0], xs.shape[1]
-        # E epochs of minibatch SGD over each client's n_k examples.
-        steps = max(cfg.local_epochs * (n_k // cfg.batch_size), 1)
-        optimizer = sgd(cfg.lr)
-        local_run = make_local_runner(loss_fn, optimizer, cfg.batch_size,
-                                      steps)
-
-        state = strategy.init(topology, draws, cfg, snr_db=cfg.snr_db)
-        consensus = tree_map(lambda x: x.to(device),
-                             draws.init_params(init_fn))
+        state, consensus, optimizer, local_run, steps = _prepare(
+            init_fn, loss_fn, topology, cfg, strategy, draws, n_k, device)
         stacked = tree_map(lambda x: x.expand((K,) + x.shape).clone(),
                            consensus)
         opt_state = optimizer.init(stacked)
@@ -274,15 +305,7 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
             if progress is not None:
                 progress(t + 1, float(loss), float(acc))
 
-        loss, acc = torch.stack(losses), torch.stack(accs)
-        history = {
-            "round": np.arange(1, cfg.rounds + 1),
-            "train_loss": loss,
-            "test_acc": acc,
-            "final_params": consensus,
-            "avg_acc": torch.mean(acc),
-            "final_acc": acc[-1],
-        }
+        history = _history(losses, accs, consensus)
         if dynamics is not None:
             history["scenario"] = {k: torch.stack(v) for k, v in
                                    dynamics.records.items()}

@@ -5,12 +5,13 @@ setup (``init``), the per-round rebuild of its state from a channel view
 (``state_from_view``), the sync round (``aggregate``), the receive side of
 a masked round (``receive_mask``), the head-failure handoff
 (``on_head_failure``) and re-clustering (``recluster``).  Every front door
-resolves a strategy by name through :func:`get_strategy`.
+resolves a strategy by name through :func:`get_strategy`.  A capability
+flag says which executors a strategy supports.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, ClassVar, Optional
 
 State = Any   # strategy state (a dataclass of tensors)
 
@@ -21,6 +22,11 @@ class Strategy:
     sync round."""
 
     name: str
+
+    #: Its sync runs as a client-axis collective, so ``run_rounds(...,
+    #: shard="clients")`` can split the K clients over the ranks of a
+    #: process group (`repro_torch.sim.sharded`).
+    supports_client_sharding: ClassVar[bool] = False
 
     def init(self, topology, draws, cfg, snr_db: Optional[float] = None
              ) -> State:

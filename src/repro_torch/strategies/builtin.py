@@ -4,7 +4,7 @@ clustered two-phase OTA aggregation (`repro_torch.core.cwfl`)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 from repro_torch.core import clustering as cl
 from repro_torch.core import cwfl
@@ -14,6 +14,8 @@ from repro_torch.strategies.base import Strategy, register_strategy
 @dataclasses.dataclass(frozen=True)
 class CWFLStrategy(Strategy):
     """Algorithm 1: cluster on SNR, water-fill, two-phase OTA aggregation."""
+
+    supports_client_sharding: ClassVar[bool] = True
 
     def init(self, topology, draws, cfg, snr_db: Optional[float] = None):
         return cwfl.setup(

@@ -7,7 +7,7 @@ one ``(C, d)`` noise matrix means the same thing to both packages.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Sequence, Union
 
 import torch
 
@@ -54,3 +54,41 @@ def tree_map(fn: Callable, tree: Tree) -> Tree:
 def tree_size(tree: Tree) -> int:
     """Total number of scalars d = dim(θ)."""
     return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_add_noise(tree: Tree, sigma,
+                   noise: Union[torch.Generator, Sequence[torch.Tensor]]
+                   ) -> Tree:
+    """tree + w, w ~ N(0, sigma² I), elementwise over every leaf.
+    ``noise``: one unit-normal tensor per leaf, in leaf order (JAX draws
+    ``normal(k, x.shape, x.dtype)`` with one key a leaf), or a
+    ``torch.Generator`` to draw them from."""
+    leaves, treedef = tree_flatten(tree)
+    if isinstance(noise, torch.Generator):
+        noise = [torch.randn(x.shape, generator=noise, dtype=x.dtype,
+                             device=x.device) for x in leaves]
+    if len(noise) != len(leaves):
+        raise ValueError(f"{len(noise)} noise tensors for {len(leaves)} "
+                         f"leaves")
+    return tree_unflatten(treedef, [x + sigma * n.to(x.dtype)
+                                    for x, n in zip(leaves, noise)])
+
+
+def tree_flatten_vector(tree: Tree) -> torch.Tensor:
+    """One 1-D vector of every leaf, in leaf order (for OTA transmission)."""
+    return torch.cat([x.reshape(-1) for x in tree_leaves(tree)])
+
+
+def tree_unflatten_vector(vec: torch.Tensor, like: Tree) -> Tree:
+    """Inverse of :func:`tree_flatten_vector` given a template tree: each
+    leaf takes its template's shape and dtype.  Leading axes of ``vec``
+    are kept: a (C, d) matrix gives leaves of shape (C,) + the
+    template's."""
+    leaves, treedef = tree_flatten(like)
+    out, off = [], 0
+    for x in leaves:
+        n = x.numel()
+        out.append(vec[..., off:off + n].reshape(vec.shape[:-1] + x.shape)
+                   .to(x.dtype))
+        off += n
+    return tree_unflatten(treedef, out)
