@@ -19,11 +19,14 @@ Phases, each printed as one JSON object per line:
    phase-1 OTA MAC) at the paper's MNIST width in f32 and bf16, JAX's
    ragged shape, and the shapes that take its other routes, its output
    poisoned with NaN before each launch, with ``torch.addmm`` as its
-   library yardstick; ``flash_attention`` at
-   Gemma-2 9B's prefill shapes (f32 and bf16, local and global layers,
-   with and without the softcap), a ragged GQA shape, and a small shape
-   for each head dim and dtype; beside it one library call on the same
-   inputs as a yardstick, held against the plain version too:
+   library yardstick; ``flash_attention`` (f32: the SIMT kernel of
+   ``flash_attention.cu``; bf16: the wgmma + TMA kernel of
+   ``flash_attention_sm90.cu``) at Gemma-2 9B's prefill shapes (f32 and
+   bf16, local and global layers, with and without the softcap), a ragged
+   GQA shape in each dtype, and a small shape for each head dim and
+   dtype, its output poisoned with NaN before each launch; beside it one
+   library call on the same inputs as a yardstick, held against the plain
+   version too:
    ``flex_attention`` (compiled; the softcap as its ``score_mod``, the
    causal/window band as its block mask) where there is a softcap,
    ``scaled_dot_product_attention`` where there is none;
@@ -53,10 +56,17 @@ Phases, each printed as one JSON object per line:
    16 greedy tokens; prefill seconds, decode tokens/s, the kernel's
    launches (one per layer in the prefill, none in decode), peak memory,
    and the last logits held against ``forward`` over the same tokens;
-9. profile — under ``torch.profiler``: one Gemma-2 9B prefill and one
-   decode step; then the static slice and ``head-failure``, the window
-   on the rounds after the first; device time by kernel, launches and
-   the device's idle share.
+   one prefill and one decode step under ``torch.profiler``;
+9. serve, bf16 — the same model and traffic with bf16 parameters and
+   compute (the JAX package's serving dtypes), the f32 weights rounded:
+   prefill seconds, decode ms a step, peak memory, the bf16 kernel's
+   launches, one profiled prefill; then ``forward`` over the f32 serve's
+   tokens through the kernel and through the plain version, the kernel's
+   last logits no further from the f32 model's than 1.5 times the plain
+   version's;
+10. profile — under ``torch.profiler``, the static slice and
+   ``head-failure``, the window on the rounds after the first; device
+   time by kernel, launches and the device's idle share.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -839,8 +849,9 @@ def profile_phase(scenario: str = "paper-static", rounds: int = 6):
 # flash_attention at the shapes Gemma-2 9B's prefill gives it (B=2 requests
 # of 4,608 tokens, 16 heads on 8 KV heads, head dim 256; local layers with
 # a 4,096-token window, global ones without; softcap 50), their bf16 and
-# cap-0 variants, a ragged GQA shape, and a small shape for every head dim
-# and dtype the kernel is built for.  q is scaled by 4 so that the scores
+# cap-0 variants, a ragged GQA shape in each dtype, and a small shape for
+# every head dim and dtype the kernels are built for (f32: the SIMT kernel,
+# bf16: the wgmma kernel).  q is scaled by 4 so that the scores
 # reach past ±15 and the softcap bends them.
 FA_SHAPES = (
     # label, B, H, KV, S, D, dtype, window, cap
@@ -850,7 +861,9 @@ FA_SHAPES = (
     ("gemma2_local_bf16", 2, 16, 8, 4608, 256, torch.bfloat16, 4096, 50.0),
     ("gemma2_global_cap0", 2, 16, 8, 4608, 256, torch.float32, 0, 0.0),
     ("gemma2_local_cap0", 2, 16, 8, 4608, 256, torch.float32, 4096, 0.0),
+    ("gemma2_global_bf16_cap0", 2, 16, 8, 4608, 256, torch.bfloat16, 0, 0.0),
     ("ragged_gqa", 1, 16, 2, 1000, 128, torch.float32, 0, 0.0),
+    ("ragged_gqa_bf16", 1, 16, 2, 1000, 128, torch.bfloat16, 0, 0.0),
 ) + tuple((f"small_d{D}_{str(dt)[6:]}", 2, 6, 2, 130, D, dt, 40, 50.0)
           for D in (32, 64, 128, 256)
           for dt in (torch.float32, torch.bfloat16))
@@ -902,9 +915,10 @@ def flex_yardstick(q, k, v, window: int, cap: float):
 
 
 def flash_kernel_phase(fa, ref_fn):
-    """flash_attention against its plain version at FA_SHAPES; returns the
-    row of the kernels summary, at the main path's shape (the global
-    layer, f32, cap 50)."""
+    """flash_attention against its plain version at FA_SHAPES, its output
+    poisoned with NaN before each launch; returns the rows of the kernels
+    summary for the f32 kernel and the bf16 kernel, each at the main
+    path's shape in its dtype (the global layer, cap 50)."""
     import torch.nn.functional as F
 
     bw, peak_f32, peak_bf16 = card_peaks(torch.cuda.get_device_name(0))
@@ -916,7 +930,8 @@ def flash_kernel_phase(fa, ref_fn):
         k = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
         v = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
         mode = {"causal": True, "window": window, "cap": cap}
-        out = fa.flash_attention(q, k, v, **mode)
+        out = poisoned_launch(lambda: fa.flash_attention(q, k, v, **mode),
+                              q.shape, dtype)
         ref = ref_fn(q, k, v, **mode)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
@@ -967,9 +982,15 @@ def flash_kernel_phase(fa, ref_fn):
         if line.get("library_max_abs_err", 0.0) > tol:
             raise AssertionError(f"the library yardstick computes another "
                                  f"function at {label}: {line}")
-    main, cap0 = rows["gemma2_global"], rows["gemma2_global_cap0"]
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    out = []
+    for name, source, suffix in (
+            ("flash_attention", "flash_attention.cu", ""),
+            ("flash_attention_bf16", "flash_attention_sm90.cu", "_bf16")):
+        main = rows[f"gemma2_global{suffix}"]
+        cap0 = rows[f"gemma2_global{suffix}_cap0"]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": "src/repro/kernels/flash_attention.py:28",
             "launches": None, "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -980,7 +1001,8 @@ def flash_kernel_phase(fa, ref_fn):
             # flex_attention with the softcap; SDPA (no softcap) on the
             # same shape at cap 0 beside it, with the kernel's time there.
             "library_ms": main["library_ms"], "library": main["library"],
-            "library_ms_cap0": cap0["library_ms"], "ms_cap0": cap0["ms"]}
+            "library_ms_cap0": cap0["library_ms"], "ms_cap0": cap0["ms"]})
+    return out
 
 
 def lm_reference_phase(fa):
@@ -1027,14 +1049,50 @@ SERVE_B, SERVE_PROMPT, SERVE_NEW = 2, 4608, 16
 SERVE_TOL = 5e-3    # decode against forward (JAX's own consistency bound)
 
 
+def timed_greedy_decode(fa, params, batch, cfg) -> dict:
+    """``greedy_decode`` of SERVE_NEW tokens with both kernels' counts set
+    to 0 just before: the tokens and last logits, prefill and decode
+    seconds (the prefill's end read by wrapping ``transformer.prefill``,
+    synchronised there), peak memory, and each kernel's launches in the
+    prefill and in all (``f32``, ``bf16``)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.serve import greedy_decode
+
+    prefill, marks = tfm.prefill, {}
+
+    def timed_prefill(*args, **kwargs):
+        out = prefill(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks["prefill_end"] = time.perf_counter()
+        marks["prefill_launches"] = (fa.launches, fa.launches_bf16)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    tfm.prefill = timed_prefill
+    fa.launches = fa.launches_bf16 = 0
+    try:
+        t0 = time.perf_counter()
+        tokens, logits = greedy_decode(params, batch, cfg, SERVE_NEW)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        tfm.prefill = prefill
+    return {"tokens": tokens, "logits": logits,
+            "prefill_s": marks["prefill_end"] - t0,
+            "decode_s": t1 - marks["prefill_end"],
+            "peak": torch.cuda.max_memory_allocated(),
+            "prefill_launches": marks["prefill_launches"],
+            "launches": (fa.launches, fa.launches_bf16)}
+
+
 def serve_phase(fa):
-    """``greedy_decode`` at full width; returns the kernel's launches over
-    the run.  The prefill's time is read by wrapping
-    ``transformer.prefill`` (synchronised at its end)."""
+    """``greedy_decode`` at full width in f32; returns the f32 kernel's
+    launches over the run, the params, batch and config, and the gate the
+    bf16 serve is held to: ``forward``'s last-position logits over the
+    prompt and the decoded tokens, and those tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     from repro_torch.models.inputs import make_batch
-    from repro_torch.training.serve import greedy_decode
     from repro_torch.utils import tree_leaves
 
     cfg = get_config("gemma2-9b")
@@ -1048,35 +1106,17 @@ def serve_phase(fa):
     param_bytes = sum(p.numel() * p.element_size()
                       for p in tree_leaves(params))
 
-    prefill, marks = tfm.prefill, {}
-
-    def timed_prefill(*args, **kwargs):
-        out = prefill(*args, **kwargs)
-        torch.cuda.synchronize()
-        marks["prefill_end"] = time.perf_counter()
-        marks["prefill_launches"] = fa.launches
-        return out
-
-    torch.cuda.reset_peak_memory_stats()
-    tfm.prefill = timed_prefill
-    fa.launches = 0
-    try:
-        t0 = time.perf_counter()
-        tokens, logits = greedy_decode(params, batch, cfg, SERVE_NEW)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-    finally:
-        tfm.prefill = prefill
-    launches = fa.launches
-    peak = torch.cuda.max_memory_allocated()
-    prefill_s = marks["prefill_end"] - t0
-    decode_s = t1 - marks["prefill_end"]
+    run = timed_greedy_decode(fa, params, batch, cfg)
+    tokens, logits = run["tokens"], run["logits"]
+    prefill_s, decode_s = run["prefill_s"], run["decode_s"]
+    launches, launches_bf16 = run["launches"]
+    prefill_launches = run["prefill_launches"][0]
 
     # The gate: the decoded path's last logits against forward over the
     # prompt and the decoded tokens (the kernel's prefill path).
     full = {"tokens": torch.cat([batch["tokens"], tokens], dim=1)}
-    want, _ = tfm.forward(params, full, cfg)
-    err = float((want[:, -1] - logits[:, 0]).abs().max())
+    want = tfm.forward(params, full, cfg)[0][:, -1].clone()
+    err = float((want - logits[:, 0]).abs().max())
     line = {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "params": tfm.count_params(cfg),
             "param_bytes": param_bytes, "batch": SERVE_B,
@@ -1085,22 +1125,120 @@ def serve_phase(fa):
             "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / prefill_s,
             "decode_s": decode_s, "decode_step_ms": decode_s / SERVE_NEW * 1e3,
             "decode_tokens_per_s": SERVE_B * SERVE_NEW / decode_s,
-            "flash_attention_launches_prefill": marks["prefill_launches"],
-            "flash_attention_launches_decode":
-                launches - marks["prefill_launches"],
-            "peak_mem_bytes": peak, "tokens": tokens.tolist(),
+            "flash_attention_launches_prefill": prefill_launches,
+            "flash_attention_launches_decode": launches - prefill_launches,
+            "peak_mem_bytes": run["peak"], "tokens": tokens.tolist(),
             "logits_finite": bool(torch.isfinite(logits).all()),
             "decode_vs_forward_abs_err": err, "tol": SERVE_TOL}
     emit(line)
-    if marks["prefill_launches"] != cfg.num_layers or \
-            launches != cfg.num_layers:
+    if prefill_launches != cfg.num_layers or \
+            launches != cfg.num_layers or launches_bf16 != 0:
         raise AssertionError(f"flash_attention launched "
-                             f"{marks['prefill_launches']} times in the "
+                             f"{prefill_launches} times in the "
                              f"prefill and {launches} in all, expected "
-                             f"{cfg.num_layers} and {cfg.num_layers}")
+                             f"{cfg.num_layers} and {cfg.num_layers}; its "
+                             f"bf16 kernel {launches_bf16} times")
     if not (line["logits_finite"] and err <= SERVE_TOL):
         raise AssertionError(f"decode disagrees with forward: {line}")
-    return launches, params, batch, cfg
+    return launches, params, batch, cfg, {"tokens": full["tokens"],
+                                          "logits": want}
+
+
+# The bf16 serve's gate: over the f32 serve's prompt and decoded tokens, the
+# bf16 model's last logits through the kernel may be at most this many
+# times as far from the f32 model's as the bf16 model's through the plain
+# version are (the kernel rounds P to bf16 before P.V; the plain version
+# keeps it in f32).
+SERVE_BF16_GATE = 1.5
+
+
+def serve_bf16_phase(fa, ref_fn, gate, batch) -> int:
+    """``greedy_decode`` of Gemma-2 9B in bf16 (the JAX package's serving
+    dtypes, ``DTYPE_OVERRIDES`` in ``repro.launch.dryrun``: bf16
+    parameters and compute) at full width, on the f32 serve's prompt:
+    prefill seconds, decode ms a step, peak memory and the bf16 kernel's
+    launches (one per layer in the prefill, none in decode; the f32
+    kernel none).  Then ``forward`` over ``gate["tokens"]`` twice, through
+    the kernel and with the plain version in its place, each held to the
+    f32 model's last logits ``gate["logits"]``.  Returns the bf16
+    kernel's launches over the serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config("gemma2-9b").replace(param_dtype="bfloat16",
+                                          compute_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # The f32 serve's weights rounded: init_params draws in f32 and casts.
+    params = tfm.init_params(0, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params))
+
+    run = timed_greedy_decode(fa, params, batch, cfg)
+    tokens, logits = run["tokens"], run["logits"]
+    prefill_s, decode_s = run["prefill_s"], run["decode_s"]
+    launches_f32, launches = run["launches"]
+    prefill_launches = run["prefill_launches"][1]
+    _profile("gemma2-9b-bf16-prefill",
+             lambda: tfm.prefill(params, batch, cfg))
+
+    # The gate: the kernel's bf16 logits against the plain version's, each
+    # against the f32 model's, over the same tokens.
+    want = gate["logits"]
+    full = {"tokens": gate["tokens"]}
+    got = tfm.forward(params, full, cfg)[0][:, -1].float()
+    launch = ops.flash_attention
+    ops.flash_attention = ref_fn
+    try:
+        plain = tfm.forward(params, full, cfg)[0][:, -1].float()
+    finally:
+        ops.flash_attention = launch
+    dist, rms = {}, {}
+    for label, x in (("kernel", got), ("plain", plain)):
+        dist[label] = float((x - want).abs().max())
+        rms[label] = float((x - want).square().mean().sqrt())
+    top = want.argmax(-1)
+    line = {"phase": "serve", "arch": cfg.name, "dtype": "bfloat16",
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "param_bytes": param_bytes, "batch": SERVE_B,
+            "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+            "init_s": init_s, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / prefill_s,
+            "decode_s": decode_s, "decode_step_ms": decode_s / SERVE_NEW * 1e3,
+            "decode_tokens_per_s": SERVE_B * SERVE_NEW / decode_s,
+            "flash_attention_bf16_launches_prefill": prefill_launches,
+            "flash_attention_bf16_launches_decode":
+                launches - prefill_launches,
+            "flash_attention_f32_launches": launches_f32,
+            "peak_mem_bytes": run["peak"], "tokens": tokens.tolist(),
+            "logits_finite": bool(torch.isfinite(logits.float()).all()),
+            "gate_tokens": list(gate["tokens"].shape),
+            "max_abs_to_f32_kernel": dist["kernel"],
+            "max_abs_to_f32_plain": dist["plain"],
+            "rms_to_f32_kernel": rms["kernel"], "rms_to_f32_plain": rms["plain"],
+            "gate_ratio": SERVE_BF16_GATE,
+            "argmax_agrees_f32_kernel": (got.argmax(-1) == top).tolist(),
+            "argmax_agrees_f32_plain": (plain.argmax(-1) == top).tolist(),
+            "argmax_agrees_kernel_plain":
+                (got.argmax(-1) == plain.argmax(-1)).tolist()}
+    emit(line)
+    if prefill_launches != cfg.num_layers or \
+            launches != cfg.num_layers or launches_f32 != 0:
+        raise AssertionError(f"the bf16 kernel launched "
+                             f"{prefill_launches} times in the "
+                             f"prefill and {launches} in all, expected "
+                             f"{cfg.num_layers} and {cfg.num_layers}; the "
+                             f"f32 kernel {launches_f32} times, expected 0")
+    if not (line["logits_finite"] and math.isfinite(dist["kernel"])
+            and dist["kernel"] <= SERVE_BF16_GATE * dist["plain"]):
+        raise AssertionError(f"the bf16 kernel's logits are further from "
+                             f"the f32 model's than {SERVE_BF16_GATE}x the "
+                             f"plain version's: {line}")
+    return launches
 
 
 def _profile(label: str, fn) -> None:
@@ -1121,11 +1259,14 @@ def _profile(label: str, fn) -> None:
                    if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    attn_ms = sum(r[1] for r in rows if "flash_attention_kernel" in r[0])
+    attn_ms = sum(r[1] for r in rows if "flash_attention" in r[0])
+    # cuBLAS's and CUTLASS's matrix products, by their kernels' names.
+    gemm_ms = sum(r[1] for r in rows
+                  if any(w in r[0] for w in ("gemm", "nvjet", "cutlass")))
     emit({"phase": "profile", "run": label, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "flash_attention_device_ms": attn_ms,
+          "flash_attention_device_ms": attn_ms, "gemm_device_ms": gemm_ms,
           "device_launches": sum(r[2] for r in rows),
           "top": [[name[:90], ms, cnt] for name, ms, cnt in rows[:10]]})
 
@@ -1196,18 +1337,20 @@ def main() -> None:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    sources = [kmod.SOURCE, omod.SOURCE, fa.SOURCE]
+    sources = [kmod.SOURCE, omod.SOURCE, *fa.SOURCES]
     cold = not any(library_path(src).exists() for src in sources)
     t0 = time.perf_counter()
     build(sources)
     kmod._library()
     omod._library()
-    fa._library()
+    fa._library(torch.float32)
+    fa._library(torch.bfloat16)
     seconds = time.perf_counter() - t0
     libraries = {}
     for names, source in ((["cwfl_round", "cwfl_round_guard"], kmod.SOURCE),
                           (["ota_aggregate"], omod.SOURCE),
-                          (["flash_attention"], fa.SOURCE)):
+                          (["flash_attention"], fa.SOURCE_F32),
+                          (["flash_attention_bf16"], fa.SOURCE_BF16)):
         log = library_path(source).with_suffix(".log").read_text()
         libraries[library_path(source).name] = {
             "kernels": names,
@@ -1216,7 +1359,7 @@ def main() -> None:
                       if "registers" in ln or "spill" in ln]}
     emit({"phase": "build",
           "kernels": ["cwfl_round", "cwfl_round_guard", "ota_aggregate",
-                      "flash_attention"],
+                      "flash_attention", "flash_attention_bf16"],
           "seconds": seconds, "cold": cold,
           "serial_cold_seconds": serial_build_seconds(sources),
           "libraries": libraries})
@@ -1224,7 +1367,7 @@ def main() -> None:
     rows = [kernel_phase(kmod, cwfl_round_ref),
             kernel_phase(kmod, cwfl_round_ref, guard=True),
             ota_kernel_phase(omod, ota_aggregate_ref),
-            flash_kernel_phase(fa, flash_attention_ref)]
+            *flash_kernel_phase(fa, flash_attention_ref)]
     reference_phase("paper-static")
     reference_phase("flaky-clients", "flaky-clients")
     dead = reference_phase("dead-cluster", dead_cluster_scenario(),
@@ -1236,9 +1379,13 @@ def main() -> None:
     rows[0]["launches"], static = slice_phase(kmod)
     rows[2]["launches"] = dist_phase(omod, kmod, static)
     rows[1]["launches"] = scenario_phase(kmod, static["test_acc"])
-    rows[3]["launches"], *served = serve_phase(fa)
-    serve_profile_phase(*served)
-    del served
+    rows[3]["launches"], params, batch, cfg, gate = serve_phase(fa)
+    serve_profile_phase(params, batch, cfg)
+    del params
+    torch.cuda.empty_cache()
+    rows[4]["launches"] = serve_bf16_phase(fa, flash_attention_ref, gate,
+                                           batch)
+    del gate, batch
     torch.cuda.empty_cache()
     profile_phase()
     profile_phase("head-failure")

@@ -16,7 +16,13 @@ from repro_torch.dist.fl_integration import FLPlan
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch cannot read: carried across as
+        # its bits, so the tensor is the array bit for bit.
+        t = torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
+        return t.to(device=device, dtype=dtype or torch.bfloat16)
+    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 def params_from_jax(np_tree, *, device) -> dict:

@@ -1,7 +1,9 @@
-// Blockwise online-softmax attention (flash attention) as one Hopper kernel.
+// Blockwise online-softmax attention (flash attention) in f32 as one
+// Hopper kernel on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/flash_attention.py::_fa_kernel.  For query head h of
+// src/repro/kernels/flash_attention.py::_fa_kernel for f32 q, k, v (bf16
+// runs on the tensor cores: flash_attention_sm90.cu).  For query head h of
 // batch b (KV head h / G, G = H / KV: grouped KV heads are read in place,
 // never replicated):
 //
@@ -10,19 +12,18 @@
 //   s       = -1e30 unless k < Skv, and k <= q (causal),
 //             and k > q - window (window > 0)
 //   o[q,:]  = sum_k softmax_k(s[q,:]) v[k,:]              online: m, l, acc
-//   o       = acc / max(l, 1e-30), in q's dtype
+//   o       = acc / max(l, 1e-30)
 //
 // What bounds it: operations.  At Gemma-2 9B's prefill shape (B=2, H=16,
 // KV=8, S=4,608, D=256) a layer does 4*D operations (2*D multiply-adds)
 // per unmasked (q, k) pair, about 348 GFLOP, against some 0.45 GB of q,
-// k, v and o; in f32 the products run on the CUDA cores (67 TFLOP/s on an
-// H100 SXM), so the least time is about 5.2 ms a layer.
+// k, v and o; the products run on the CUDA cores (67 TFLOP/s in f32 on
+// an H100 SXM), so the least time is about 5.2 ms a layer.
 //
 // What this design does about it: one block of 256 threads owns 64 query
 // rows of one (b, h) and sweeps the KV sequence in tiles of 64 keys.  The
 // scaled q tile, each k and v tile, and the tile of probabilities live in
-// shared memory as f32 (bf16 inputs are widened on the way in); the scores
-// never reach device memory.  Both products are register-tiled: a thread
+// shared memory; the scores never reach device memory.  Both products are register-tiled: a thread
 // computes 4 rows x 4 keys of the score tile (keys strided by 16, so the
 // k rows a quarter-warp reads fall in distinct banks) and 4 rows x D/16
 // columns of the output, from 128-bit shared loads.  The 16 threads that
@@ -33,14 +34,13 @@
 // first valid key and is wiped by corr = exp(-1e30 - m) = 0 before it.
 // Query blocks run heaviest first (reversed), so the causal tail is short.
 // The ragged edges (Sq, Skv not multiples of 64, Sq = 1) are masked here;
-// nothing is padded in device memory.  wgmma, TMA and pipelining are left
-// to later work.
+// nothing is padded in device memory.  TF32 or bf16 tensor cores,
+// TMA and pipelining are left to later work.
 //
 // Plain C interface, bound with ctypes
-// (src/repro_torch/kernels/flash_attention.py): each entry point launches
-// on the given stream and returns the first CUDA error, or 0.
+// (src/repro_torch/kernels/flash_attention.py): flash_attention_f32
+// launches on the given stream and returns the first CUDA error, or 0.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -69,33 +69,13 @@ struct Shape {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-template <typename T>
-__device__ __forceinline__ void store(T* p, float x);
-template <>
-__device__ __forceinline__ void store<float>(float* p, float x) {
-  *p = x;
-}
-template <>
-__device__ __forceinline__ void store<__nv_bfloat16>(__nv_bfloat16* p,
-                                                     float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Copy a (64, D) tile starting at global row `row0` into
-// shared memory with row stride `ld`, widened to f32 and multiplied by
-// `scale`; rows at or past `limit` are zero.
-template <typename T, int D>
+// shared memory with row stride `ld`, multiplied by `scale`; rows at or
+// past `limit` are zero.
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int row0, int limit, float scale) {
   constexpr int kQuads = D / 4;
   for (int idx = threadIdx.x; idx < kBK * kQuads; idx += kThreads) {
@@ -113,10 +93,12 @@ __device__ __forceinline__ void load_tile(float* dst, int ld,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int H,
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int H,
                            int KV, int Sq, int Skv, bool causal, int window,
                            float cap, float scale) {
   using S = Shape<D>;
@@ -134,12 +116,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = qb * kBQ;
   const int G = H / KV;
 
-  const T* qp = q + (static_cast<int64_t>(b) * H + h) * Sq * D;
-  const T* kp = k + (static_cast<int64_t>(b) * KV + h / G) * Skv * D;
-  const T* vp = v + (static_cast<int64_t>(b) * KV + h / G) * Skv * D;
-  T* op = o + (static_cast<int64_t>(b) * H + h) * Sq * D;
+  const float* qp = q + (static_cast<int64_t>(b) * H + h) * Sq * D;
+  const float* kp = k + (static_cast<int64_t>(b) * KV + h / G) * Skv * D;
+  const float* vp = v + (static_cast<int64_t>(b) * KV + h / G) * Skv * D;
+  float* op = o + (static_cast<int64_t>(b) * H + h) * Sq * D;
 
-  load_tile<T, D>(qs, S::kLd, qp, q0, Sq, scale);
+  load_tile<D>(qs, S::kLd, qp, q0, Sq, scale);
 
   // The KV range any row of this block can see.
   int k_end = Skv;
@@ -157,8 +139,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    load_tile<T, D>(ks, S::kLd, kp, k0, Skv, 1.f);
-    load_tile<T, D>(vs, D, vp, k0, Skv, 1.f);
+    load_tile<D>(ks, S::kLd, kp, k0, Skv, 1.f);
+    load_tile<D>(vs, D, vp, k0, Skv, 1.f);
     __syncthreads();
 
     // Scores: rows ty*4 + i, keys tx + 16*j.
@@ -273,21 +255,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = op + static_cast<int64_t>(row) * D + tx * S::kVec;
+    float* orow = op + static_cast<int64_t>(row) * D + tx * S::kVec;
 #pragma unroll
     for (int g = 0; g < S::kGroups; ++g)
 #pragma unroll
       for (int c = 0; c < S::kVec; ++c)
-        store<T>(orow + g * 16 * S::kVec + c,
-                 acc[i][g * S::kVec + c] / denom);
+        orow[g * 16 * S::kVec + c] = acc[i][g * S::kVec + c] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
              int H, int KV, int Sq, int Skv, int causal, int window,
              float cap, float scale, void* stream) {
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Shape<D>::kSmem));
@@ -295,28 +276,27 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ), H, B);
   kernel<<<grid, kThreads, Shape<D>::kSmem,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Skv,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Skv,
       causal != 0, window, cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int Sq, int Skv, int D, int causal, int window,
            float cap, float scale, void* stream) {
   switch (D) {
     case 32:
-      return launch_d<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
+      return launch_d<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
                              cap, scale, stream);
     case 64:
-      return launch_d<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
+      return launch_d<64>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
                              cap, scale, stream);
     case 128:
-      return launch_d<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
+      return launch_d<128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
                               cap, scale, stream);
     case 256:
-      return launch_d<T, 256>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
+      return launch_d<256>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
                               cap, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -331,16 +311,8 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KV, int Sq, int Skv, int D,
                         int causal, int window, float cap, float scale,
                         void* stream) {
-  return launch<float>(q, k, v, o, B, H, KV, Sq, Skv, D, causal, window,
-                       cap, scale, stream);
-}
-
-int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, int B, int H, int KV, int Sq, int Skv,
-                         int D, int causal, int window, float cap,
-                         float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, D, causal,
-                               window, cap, scale, stream);
+  return launch(q, k, v, o, B, H, KV, Sq, Skv, D, causal, window, cap,
+                scale, stream);
 }
 
 }  // extern "C"

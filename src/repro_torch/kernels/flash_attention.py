@@ -1,4 +1,4 @@
-"""Blockwise flash attention: wrapper of the Hopper kernel.
+"""Blockwise flash attention: wrapper of the Hopper kernels.
 
 Port of `repro.kernels.flash_attention`.  Online-softmax attention with
 grouped KV heads (query head h reads KV head h // G), a causal mask, a
@@ -8,17 +8,26 @@ sliding window, a tanh logit softcap and the pad mask ``k < Skv``:
     s = −1e30 where masked
     o = softmax(s) v                           in q's dtype
 
-On a CUDA tensor :func:`flash_attention` launches the kernel in
-``csrc/flash_attention.cu`` (built with ``nvcc`` at first use, see
-`repro_torch.kernels._build`) or raises; on a CPU tensor it runs the plain
-version `repro_torch.kernels.ref.flash_attention_ref`.  There is no
-fallback from one to the other.
+Two designs, one for each dtype, both built with ``nvcc`` at first use
+(see `repro_torch.kernels._build`):
 
-A row with no valid key at all has no meaningful value in either
-kernel: the Pallas kernel gives mean(v) (its −1e30 scores tie), this one
-mean(v) over the KV tiles it visits, or 0 where it skips them all; the
-plain version gives 0.  Causal attention over a prompt never has such a
-row, and the tests avoid it.
+- f32: ``csrc/flash_attention.cu``, on the CUDA cores: tiles widened in
+  shared memory, both products register-tiled ``fmaf`` loops;
+- bf16: ``csrc/flash_attention_sm90.cu``, on the tensor cores: a
+  warp-specialised kernel (one producer warpgroup issuing TMA loads into
+  a 2-stage ring, two consumer warpgroups running ``wgmma``), P rounded
+  to bf16 before P·V.
+
+On a CUDA tensor :func:`flash_attention` launches the kernel of q's dtype
+or raises; on a CPU tensor it runs the plain version
+`repro_torch.kernels.ref.flash_attention_ref`.  There is no fallback from
+one to another.
+
+A row with no valid key at all has no meaningful value in any kernel:
+the Pallas kernel gives mean(v) (its −1e30 scores tie), these mean(v)
+over the KV tiles they visit, or 0 where they skip them all; the plain
+version gives 0.  Causal attention over a prompt never has such a row,
+and the tests avoid it.
 """
 from __future__ import annotations
 
@@ -31,22 +40,32 @@ import torch
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.ref import flash_attention_ref
 
-SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
-#: The head dimensions the kernel is instantiated for.
+_CSRC = Path(__file__).with_name("csrc")
+#: The f32 kernel (CUDA cores) and the bf16 kernel (wgmma + TMA).
+SOURCE_F32 = _CSRC / "flash_attention.cu"
+SOURCE_BF16 = _CSRC / "flash_attention_sm90.cu"
+SOURCES = (SOURCE_F32, SOURCE_BF16)
+#: The head dimensions both kernels are instantiated for.
 HEAD_DIMS = (32, 64, 128, 256)
 
-#: Kernel launches so far: raised by one per launch, and nowhere else.
+#: Kernel launches so far, f32 and bf16; each raised by one per launch of
+#: its kernel, and nowhere else.
 launches = 0
+launches_bf16 = 0
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library(SOURCE)
-    for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+def _library(dtype: torch.dtype):
+    """The entry point of ``dtype``'s kernel, its library built and loaded
+    at the first call (never at import)."""
+    if dtype == torch.float32:
+        fn = load_library(SOURCE_F32).flash_attention_f32
+    else:
+        fn = load_library(SOURCE_BF16).flash_attention_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(q, k, v):
@@ -74,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, Sq, D); k, v: (B, KV, Skv, D) with H a multiple of KV.
     ``window`` > 0 keeps keys k > q − window; ``cap`` > 0 soft-caps the
     scores.  Returns (B, H, Sq, D) in q's dtype."""
-    global launches
+    global launches, launches_bf16
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -94,16 +113,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = (_library().flash_attention_f32 if q.dtype == torch.float32
-          else _library().flash_attention_bf16)
+    fn = _library(q.dtype)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, KV, Sq, Skv, D, int(causal), int(window), float(cap),
                  D ** -0.5, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err} (q {tuple(q.shape)}, k "
+                           f"error {err} (1000 + n: CUresult n encoding a "
+                           f"tensor map; q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, {q.dtype})")
-    launches += 1
+    if q.dtype == torch.float32:
+        launches += 1
+    else:
+        launches_bf16 += 1
     return out
 
