@@ -19,8 +19,9 @@ Phases, each printed as one JSON object per line:
    phase-1 OTA MAC) at the paper's MNIST width in f32 and bf16, JAX's
    ragged shape, and the shapes that take its other routes, its output
    poisoned with NaN before each launch, with ``torch.addmm`` as its
-   library yardstick; ``flash_attention`` (f32: the SIMT kernel of
-   ``flash_attention.cu``; bf16: the wgmma + TMA kernel of
+   library yardstick; ``flash_attention`` (f32: the 3×TF32 wgmma + TMA
+   kernel of ``flash_attention.cu``, its bound both on the tensor cores
+   and on the CUDA cores; bf16: the wgmma + TMA kernel of
    ``flash_attention_sm90.cu``) at Gemma-2 9B's prefill shapes (f32 and
    bf16, local and global layers, with and without the softcap), a ragged
    GQA shape in each dtype, and a small shape for each head dim and
@@ -62,8 +63,8 @@ Phases, each printed as one JSON object per line:
    prefill seconds, decode ms a step, peak memory, the bf16 kernel's
    launches, one profiled prefill; then ``forward`` over the f32 serve's
    tokens through the kernel and through the plain version, the kernel's
-   last logits no further from the f32 model's than 1.5 times the plain
-   version's;
+   last logits no further from the f32 model's than SERVE_BF16_GATE
+   times the plain version's;
 10. profile — under ``torch.profiler``, the static slice and
    ``head-failure``, the window on the rounds after the first; device
    time by kernel, launches and the device's idle share.
@@ -86,9 +87,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense): device-memory
-# bytes/s, f32 FLOP/s outside the tensor cores, and bf16 FLOP/s on the
-# tensor cores, matched on the name the card reports.
-PEAKS = (("H100 80GB HBM3", 3.35e12, 67e12, 989e12),)
+# bytes/s, f32 FLOP/s outside the tensor cores, and bf16 and TF32 FLOP/s on
+# the tensor cores, matched on the name the card reports.
+PEAKS = (("H100 80GB HBM3", 3.35e12, 67e12, 989e12, 495e12),)
 
 DEVICE = "cuda"
 F32_ATOL = 1e-5          # f32 sums in another order than cuBLAS's
@@ -100,7 +101,8 @@ def emit(obj) -> None:
 
 
 def card_peaks(name: str):
-    """(bytes/s, f32 FLOP/s, bf16 FLOP/s) of the card called ``name``."""
+    """(bytes/s, f32 FLOP/s, bf16 FLOP/s, TF32 FLOP/s) of the card called
+    ``name``."""
     for key, *peaks in PEAKS:
         if key in name:
             return peaks
@@ -218,7 +220,7 @@ def kernel_phase(kmod, ref_fn, guard: bool = False):
                 "max_abs_err_cons": err_cons, "tol_cons": F32_ATOL,
                 "finite": finite}
         if label == "main":
-            bw, peak, _ = card_peaks(torch.cuda.get_device_name(0))
+            bw, peak, *_ = card_peaks(torch.cuda.get_device_name(0))
             nbytes = (kmod.hbm_bytes_model(K, C, d)["fused_bytes"]
                       + 4 * (2 * C * K + C * C))
             flops = d * (2 * C * K + 2 * C * C + 2 * K * C + 3 * C)
@@ -291,7 +293,7 @@ def ota_kernel_phase(omod, ref_fn):
     ``torch.addmm(N, W, S)`` — one cuBLAS call computing the same function
     (TF32 off) — beside it; returns the main-shape row of the kernels
     summary (without its launch count)."""
-    bw, peak_f32, _ = card_peaks(torch.cuda.get_device_name(0))
+    bw, peak_f32, *_ = card_peaks(torch.cuda.get_device_name(0))
     rows = {}
     for label, K, C, d, dtype, wdtype in OTA_SHAPES:
         g = torch.Generator(DEVICE).manual_seed(K + C + d)
@@ -850,8 +852,8 @@ def profile_phase(scenario: str = "paper-static", rounds: int = 6):
 # of 4,608 tokens, 16 heads on 8 KV heads, head dim 256; local layers with
 # a 4,096-token window, global ones without; softcap 50), their bf16 and
 # cap-0 variants, a ragged GQA shape in each dtype, and a small shape for
-# every head dim and dtype the kernels are built for (f32: the SIMT kernel,
-# bf16: the wgmma kernel).  q is scaled by 4 so that the scores
+# every head dim and dtype the kernels are built for (f32: the 3×TF32
+# kernel, bf16: the bf16 one).  q is scaled by 4 so that the scores
 # reach past ±15 and the softcap bends them.
 FA_SHAPES = (
     # label, B, H, KV, S, D, dtype, window, cap
@@ -918,10 +920,15 @@ def flash_kernel_phase(fa, ref_fn):
     """flash_attention against its plain version at FA_SHAPES, its output
     poisoned with NaN before each launch; returns the rows of the kernels
     summary for the f32 kernel and the bf16 kernel, each at the main
-    path's shape in its dtype (the global layer, cap 50)."""
+    path's shape in its dtype (the global layer, cap 50).  An f32 line
+    carries two operation bounds: on the CUDA cores at the f32 rate
+    (``bound_ms_operations``), and on the tensor cores as three TF32
+    passes (``bound_ms_tf32x3``), the least time for this work at f32
+    accuracy, which is the f32 row's ``bound_ms``."""
     import torch.nn.functional as F
 
-    bw, peak_f32, peak_bf16 = card_peaks(torch.cuda.get_device_name(0))
+    bw, peak_f32, peak_bf16, peak_tf32 = card_peaks(
+        torch.cuda.get_device_name(0))
     rows = {}
     for label, B, H, KV, S, D, dtype, window, cap in FA_SHAPES:
         g = torch.Generator(DEVICE).manual_seed(S + D + window)
@@ -956,6 +963,8 @@ def flash_kernel_phase(fa, ref_fn):
                         bytes=nbytes, bound_ms_bytes=bound_bytes,
                         bound_ms_operations=bound_ops,
                         achieved_flops_per_s=flops / (ms * 1e-3))
+            if dtype == torch.float32:
+                line["bound_ms_tf32x3"] = 3 * flops / peak_tf32 * 1e3
             # The library yardstick, never on the port's path: one PyTorch
             # call on the same inputs, held against the plain version too.
             if cap == 0.0:
@@ -988,20 +997,24 @@ def flash_kernel_phase(fa, ref_fn):
             ("flash_attention_bf16", "flash_attention_sm90.cu", "_bf16")):
         main = rows[f"gemma2_global{suffix}"]
         cap0 = rows[f"gemma2_global{suffix}_cap0"]
-        out.append({
+        ops = main.get("bound_ms_tf32x3", main["bound_ms_operations"])
+        row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": "src/repro/kernels/flash_attention.py:28",
             "launches": None, "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": max(main["bound_ms_bytes"],
-                            main["bound_ms_operations"]),
-            "bound_by": ("bytes" if main["bound_ms_bytes"]
-                         >= main["bound_ms_operations"] else "operations"),
+            "bound_ms": max(main["bound_ms_bytes"], ops),
+            "bound_by": ("bytes" if main["bound_ms_bytes"] >= ops
+                         else "operations"),
             # flex_attention with the softcap; SDPA (no softcap) on the
             # same shape at cap 0 beside it, with the kernel's time there.
             "library_ms": main["library_ms"], "library": main["library"],
-            "library_ms_cap0": cap0["library_ms"], "ms_cap0": cap0["ms"]})
+            "library_ms_cap0": cap0["library_ms"], "ms_cap0": cap0["ms"]}
+        if "bound_ms_tf32x3" in main:
+            row["bound_basis"] = "3xTF32 on the tensor cores (f32 accuracy)"
+            row["bound_ms_f32_cuda_cores"] = main["bound_ms_operations"]
+        out.append(row)
     return out
 
 
@@ -1147,9 +1160,11 @@ def serve_phase(fa):
 # The bf16 serve's gate: over the f32 serve's prompt and decoded tokens, the
 # bf16 model's last logits through the kernel may be at most this many
 # times as far from the f32 model's as the bf16 model's through the plain
-# version are (the kernel rounds P to bf16 before P.V; the plain version
-# keeps it in f32).
-SERVE_BF16_GATE = 1.5
+# version are.  The kernel keeps P to about 2^-17 as P_hi + P_lo, where the
+# plain version keeps it in f32 (with P rounded to bf16 the ratio was
+# 1.37); its other f32-level differences still flip single bf16 roundings,
+# and the ratio is 1.2076 on an H100 in every run: the gate is that plus 5 %.
+SERVE_BF16_GATE = 1.27
 
 
 def serve_bf16_phase(fa, ref_fn, gate, batch) -> int:

@@ -18,9 +18,9 @@ _ARCH_MODULES = {
 _LATER = "(ROADMAP §1, the other mixers and front ends)"
 _NOT_PORTED = {
     "phi4-mini-3.8b": "a dense decoder, registered when a path or cell "
-                      "needs it (ROADMAP §1 item 9)",
+                      "needs it (ROADMAP §1 item 8)",
     "llama3-405b": "a dense decoder, registered when a path or cell needs "
-                   "it (ROADMAP §1 item 9)",
+                   "it (ROADMAP §1 item 8)",
     "qwen3-moe-235b-a22b": f"it waits for MoE and qk_norm {_LATER}",
     "kimi-k2-1t-a32b": f"it waits for MoE {_LATER}",
     "jamba-v0.1-52b": f"it waits for mamba and MoE {_LATER}",

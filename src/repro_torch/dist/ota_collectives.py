@@ -32,7 +32,7 @@ from repro_torch.utils.pytree import (tree_flatten_vector, tree_map,
 
 
 def _defaults_only(normalize: bool, precode: bool) -> None:
-    """The port always normalizes and precodes (ROADMAP §1 item 9 lists the
+    """The port always normalizes and precodes (ROADMAP §1 item 8 lists the
     literal-weight modes)."""
     if not (normalize and precode):
         raise NotImplementedError(

@@ -49,14 +49,16 @@
 // (only on tiles that cross the diagonal, the window's lower edge or Skv)
 // and the online update of m and l.  A row of the accumulator lies on the
 // 4 threads of a quad, so its max and sum take two shuffles.  P is then
-// rounded to bf16 in registers, in the A-operand layout of the next
-// product, which is the accumulator's.  O (64 x D in f32, 128 registers a
-// thread at D = 256) stays in registers until the epilogue divides by l
-// and stores bf16, masking rows >= Sq.  Nothing but wgmma may write a
-// wgmma's registers between its fence and its wait, or ptxas serialises
-// every product of the kernel: O is rescaled before the fence, P is
-// packed after the wait, and the warpgroup's index comes through a
-// shuffle so that the descriptors stay in uniform registers.
+// split in registers into two bf16 terms, P_hi = bf16(P) and P_lo =
+// bf16(P - P_hi), in the A-operand layout of the next product, which is
+// the accumulator's, and P V is issued as P_hi V + P_lo V into the same
+// accumulator.  O (64 x D in f32, 128 registers a thread at D = 256)
+// stays in registers until the epilogue divides by l and stores bf16,
+// masking rows >= Sq.  Nothing but wgmma may write a wgmma's registers
+// between its fence and its wait, or ptxas serialises every product of
+// the kernel: O is rescaled before the fence, P_hi and P_lo are packed
+// after the wait, and the warpgroup's index comes through a shuffle so
+// that the descriptors stay in uniform registers.
 //
 // Tiles are loaded by a 3-D tensor map over (D, S, batch * heads), so the
 // rows of a ragged tile past S are zero-filled by the hardware rather
@@ -74,10 +76,12 @@
 // valid key and is wiped by corr = exp(-1e30 - m) = 0 before it).  Query
 // blocks run heaviest first.
 //
-// Numerics: P is rounded to bf16 before P.V, while the plain version and
-// JAX keep it in f32: a relative error of about 2^-9 a weight.  The scale
-// is applied to S in f32, as in the Pallas kernel (JAX's model scales q in
-// bf16; at D = 256 the scale is 1/16 and exact either way).  l sums the
+// Numerics: the plain version and JAX keep P and P.V in f32.  One bf16
+// term would leave a relative error of about 2^-9 a weight; P_hi + P_lo
+// leaves about 2^-17 (V is bf16 already, and exact), at the cost of a
+// second P.V product, half again of the tensor-core work.  The scale is
+// applied to S in f32, as in the Pallas kernel; the model's op passes 1.0
+// and scales q in bf16 itself, as JAX's model does.  l sums the
 // unrounded f32 weights.
 //
 // Not done here, and left to later work: a persistent schedule over the
@@ -407,12 +411,18 @@ __device__ __forceinline__ void softmax_tile(
   l1 = l1 * corr1 + sum1;
 }
 
-// P rounded to bf16 in the register A layout of the P V product: the
-// accumulator's layout, two columns a register.
+// P = P_hi + P_lo, both bf16, in the register A layout of the P V
+// product: the accumulator's layout, two columns a register.
 __device__ __forceinline__ void pack_p(const float (&sc)[32],
-                                       uint32_t (&pa)[16]) {
+                                       uint32_t (&pa)[16],
+                                       uint32_t (&pl)[16]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) pa[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+  for (int j = 0; j < 16; ++j) {
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[2 * j], sc[2 * j + 1]);
+    pa[j] = *reinterpret_cast<const uint32_t*>(&hi);
+    pl[j] = pack_bf16(sc[2 * j] - __low2float(hi),
+                      sc[2 * j + 1] - __high2float(hi));
+  }
 }
 
 // S = Q K^T for one warpgroup's 64 rows and a tile of 64 keys: D/16
@@ -429,15 +439,19 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_tile,
   }
 }
 
-// O += P V: 4 k-steps of 16 keys (2 KB of the V tile each).
+// O += P_hi V + P_lo V: 4 k-steps of 16 keys (2 KB of the V tile each),
+// two products a step into the same accumulator.
 template <int DP>
 __device__ __forceinline__ void issue_pv(float (&acc)[DP / 2],
                                          const uint32_t (&pa)[16],
+                                         const uint32_t (&pl)[16],
                                          uint32_t v_tile) {
-  wgmma_rs<DP>(acc, pa, 0, smem_desc(v_tile, kBoxBytes, 1024));
-  wgmma_rs<DP>(acc, pa, 4, smem_desc(v_tile + 2048, kBoxBytes, 1024));
-  wgmma_rs<DP>(acc, pa, 8, smem_desc(v_tile + 4096, kBoxBytes, 1024));
-  wgmma_rs<DP>(acc, pa, 12, smem_desc(v_tile + 6144, kBoxBytes, 1024));
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint64_t desc = smem_desc(v_tile + 2048 * s, kBoxBytes, 1024);
+    wgmma_rs<DP>(acc, pa, 4 * s, desc);
+    wgmma_rs<DP>(acc, pl, 4 * s, desc);
+  }
 }
 
 template <int D, int DP, bool kCap>
@@ -547,7 +561,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   float acc[DP / 2];
   float sc[32];
-  uint32_t pa[16];
+  uint32_t pa[16], pl[16];   // P_hi, P_lo
 #pragma unroll
   for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
 #pragma unroll
@@ -573,7 +587,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     softmax_tile<kCap>(sc, m0, m1, l0, l1, corr0, corr1, edge(k_begin),
                        k_begin, col, qpos0, causal, window, Skv, cap,
                        inv_cap, scale);
-    pack_p(sc, pa);
+    pack_p(sc, pa, pl);
 
     // Tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} issued together; the
     // softmax of tile i runs while the second product is in flight.
@@ -593,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
       issue_qk<D>(sc, q_tile, base + L::kK + s * L::kTile);
       wgmma_commit();
-      issue_pv<DP>(acc, pa, base + L::kV + sp * L::kTile);
+      issue_pv<DP>(acc, pa, pl, base + L::kV + sp * L::kTile);
       wgmma_commit();
       named_arrive(other_turn);
       wgmma_wait<1>();  // S_i is ready; P V may still run
@@ -605,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();
       fence_regs(acc);
       mbar_arrive_one(v_empty(sp));
-      pack_p(sc, pa);
+      pack_p(sc, pa, pl);
     }
 
     // The last P V.
@@ -616,7 +630,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     named_sync(my_turn);
     fence_regs(acc);
     wgmma_fence();
-    issue_pv<DP>(acc, pa, base + L::kV + sp * L::kTile);
+    issue_pv<DP>(acc, pa, pl, base + L::kV + sp * L::kTile);
     wgmma_commit();
     if (cw == 0) named_arrive(other_turn);
     wgmma_wait<0>();

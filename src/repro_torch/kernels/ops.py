@@ -35,9 +35,17 @@ def ota_aggregate_op(stacked_params, weights: torch.Tensor,
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        *, causal: bool = True, window: int = 0,
                        cap: float = 0.0) -> torch.Tensor:
-    """Model layout: q (B, S, H, D); k, v (B, S, KV, D) -> (B, S, H, D)."""
-    o = flash_attention(q.transpose(1, 2).contiguous(),
-                        k.transpose(1, 2).contiguous(),
+    """Model layout: q (B, S, H, D); k, v (B, S, KV, D) -> (B, S, H, D).
+
+    q is scaled by D^-0.5 in its own dtype, as the JAX model's attention
+    does (`repro.models.attention.flash_attention`: the scale rounded to
+    q's dtype, the product rounded once), and the kernel runs with
+    ``scale=1.0``; in bf16 at D = 128 that rounding moves the scores."""
+    B, S, H, D = q.shape
+    scale = torch.tensor(D ** -0.5, dtype=q.dtype).item()
+    qt = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    torch.mul(q.transpose(1, 2), scale, out=qt)
+    o = flash_attention(qt, k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous(),
-                        causal=causal, window=window, cap=cap)
+                        causal=causal, window=window, cap=cap, scale=1.0)
     return o.transpose(1, 2)

@@ -51,13 +51,17 @@ def cwfl_round_ref(signals: torch.Tensor, phase1: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        cap: float = 0.0) -> torch.Tensor:
+                        cap: float = 0.0,
+                        scale: float | None = None) -> torch.Tensor:
     """Exact softmax attention, f32 throughout.  q: (B, H, Sq, D); k, v:
-    (B, KV, Skv, D); query head h reads KV head h // (H / KV).  A row with
-    no valid key gives 0.  Returns (B, H, Sq, D) in q's dtype."""
+    (B, KV, Skv, D); query head h reads KV head h // (H / KV); q is
+    multiplied by ``scale`` in f32 (default D^-0.5).  A row with no valid
+    key gives 0.  Returns (B, H, Sq, D) in q's dtype."""
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    qg = (q.to(torch.float32) * (D ** -0.5)).reshape(B, KV, H // KV, Sq, D)
+    if scale is None:
+        scale = D ** -0.5
+    qg = (q.to(torch.float32) * scale).reshape(B, KV, H // KV, Sq, D)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32))
     if cap > 0.0:
         s = cap * torch.tanh(s / cap)

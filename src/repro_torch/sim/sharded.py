@@ -19,7 +19,7 @@ and the round's products run as plain ``torch.matmul`` (as in JAX, where
 they sit outside any Pallas kernel) rather than the fused round kernel.
 
 JAX's trajectory-parallel Monte-Carlo (``monte_carlo_sharded``,
-``shard="mc"``) waits for ``run_monte_carlo`` (ROADMAP §1 item 8).
+``shard="mc"``) waits for ``run_monte_carlo`` (ROADMAP §1 item 4).
 """
 from __future__ import annotations
 
@@ -101,14 +101,14 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
     Static CWFL scenarios only: masking and re-clustering have not been
     taught the sharded sync.  ``progress(r, loss, acc)`` runs on every
     rank.  ``telemetry``, ``checkpoint_dir``/``resume``/``stop_after`` and
-    ``stream`` are not ported (ROADMAP §1 item 7) and raise."""
+    ``stream`` are not ported (ROADMAP §1 item 5) and raise."""
     for name, value in (("telemetry", telemetry),
                         ("checkpoint_dir", checkpoint_dir),
                         ("resume", resume), ("stop_after", stop_after),
                         ("stream", stream)):
         if value not in (None, False):
             raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP §1 item 7: "
+                f"{name}= is not ported yet (ROADMAP §1 item 5: "
                 f"observability and checkpoints)")
     if isinstance(scenario, str):
         scenario = get_scenario(scenario)

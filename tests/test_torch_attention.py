@@ -108,6 +108,35 @@ def test_flash_attention_op_matches_model_attention():
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp (8 significant bits) of each value, taken at 1/64 for
+    smaller ones: those are sums that cancel, and the f32 rounding of
+    their terms in another order (JAX's chunked softmax, the plain
+    version's exact one) exceeds their own ulp."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -6))) - 7)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_attention_op_scales_q_in_bf16_as_the_model(D):
+    """In bf16 the JAX model scales q by D^-0.5 in q's dtype before the
+    products (`repro.models.attention.flash_attention`: the scale rounded
+    to bf16, the product rounded once); the op does the same, so its
+    output is within one bf16 ulp of JAX's at every head dim.  q is
+    scaled by 4, so that the scores are large enough for q's rounding to
+    show: at D = 128 and 32 the scale is no power of two, and scaling q
+    in f32 instead misses by a hundred ulp."""
+    rng = np.random.default_rng(D)
+    B, S, H, KV = 2, 96, 4, 2
+    args = [(4 * rng.standard_normal((B, S, H, D))).astype(np.float32),
+            rng.standard_normal((B, S, KV, D)).astype(np.float32),
+            rng.standard_normal((B, S, KV, D)).astype(np.float32)]
+    (jq, jk, jv), (tq, tk, tv) = _both(args, "bfloat16")
+    want = _np(jax_model_fa(jq, jk, jv, causal=True, block=32))
+    got = flash_attention_op(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, D)
+    assert np.all(np.abs(_np(got) - want) <= _bf16_ulp(want))
+
+
 @pytest.mark.parametrize("bad", ["rank", "kv_shape", "groups", "dtype",
                                  "device"])
 def test_flash_attention_rejects_bad_inputs(bad):

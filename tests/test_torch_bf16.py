@@ -59,6 +59,14 @@ def _gap(a, b) -> float:
     return float(np.abs(_f32(a) - _f32(b)).max())
 
 
+# The port's bf16 outputs against JAX's, as a multiple of JAX's own
+# bf16-vs-f32 gap.  The model's op scales q in bf16 as JAX's model does,
+# so the two differ only where ATen and XLA round products and sums
+# otherwise; the largest ratio on these weights is 1.08 (qwen2.5-3b's
+# prefill logits, 1.20 when the op scaled q in f32).
+GAP_RATIO = 1.5
+
+
 @pytest.fixture(scope="module", params=NAMES)
 def model(request):
     """(name, JAX f32 cfg, JAX bf16 cfg, port bf16 cfg, JAX f32 params,
@@ -100,10 +108,11 @@ def test_params_carry_across_bitwise(model):
 
 def test_forward_matches_jax_within_twice_its_bf16_gap(model):
     """The port's bf16 logits against JAX's bf16 logits on the same
-    weights and tokens, within twice JAX's own bf16-vs-f32 gap: both
-    packages round to bf16 after every product, at places that differ
-    (ATen's and XLA's matmuls, the exact softmax against JAX's chunked
-    one), so they may differ by the size of bf16 rounding itself."""
+    weights and tokens, within GAP_RATIO (1.5) times JAX's own
+    bf16-vs-f32 gap: both packages round to bf16 after every product, at
+    places that differ (ATen's and XLA's matmuls, the exact softmax
+    against JAX's chunked one), so they may differ by the size of bf16
+    rounding itself."""
     _, jcfg, jcfg16, tcfg16, jparams, jparams16, tparams, jbatch, tbatch = \
         model
     want32, _ = jtfm.forward(jparams, jbatch, jcfg)
@@ -113,26 +122,27 @@ def test_forward_matches_jax_within_twice_its_bf16_gap(model):
     assert got.shape == (2, PROMPT, tcfg16.vocab_size)
     gap = _gap(want, want32)
     assert 0.0 < gap < 0.2 * float(np.abs(_f32(want32)).max())
-    assert _gap(got, want) <= 2 * gap
+    assert _gap(got, want) <= GAP_RATIO * gap
 
 
 def test_prefill_matches_jax_within_twice_its_bf16_gap(model):
     """The last position's logits and every cache leaf (k, v of every
-    layer), each within twice JAX's own bf16-vs-f32 gap on that output."""
+    layer), each within GAP_RATIO (1.5) times JAX's own bf16-vs-f32 gap
+    on that output."""
     _, jcfg, jcfg16, tcfg16, jparams, jparams16, tparams, jbatch, tbatch = \
         model
     want32_logits, want32_caches = jtfm.prefill(jparams, jbatch, jcfg)
     want_logits, want_caches = jtfm.prefill(jparams16, jbatch, jcfg16)
     got_logits, got_caches = ttfm.prefill(tparams, tbatch, tcfg16)
     assert got_logits.dtype == torch.bfloat16
-    assert _gap(got_logits, want_logits) <= 2 * _gap(want_logits,
-                                                     want32_logits)
+    assert _gap(got_logits, want_logits) <= GAP_RATIO * _gap(
+        want_logits, want32_logits)
     got, want = tree_leaves(got_caches), jax.tree.leaves(want_caches)
     want32 = jax.tree.leaves(want32_caches)
     assert len(got) == len(want) == 2 * len(tcfg16.pattern)
     for g, w, w32 in zip(got, want, want32):
         assert g.dtype == torch.bfloat16 and tuple(g.shape) == w.shape
-        assert _gap(g, w) <= 2 * _gap(w, w32)
+        assert _gap(g, w) <= GAP_RATIO * _gap(w, w32)
 
 
 def test_greedy_decode_runs_in_bf16(model):
@@ -182,16 +192,23 @@ def test_flash_attention_bf16_on_the_cpu_runs_the_plain_version(
 
 def test_flash_attention_lists_both_sources():
     """The f32 and the bf16 kernels, each in its own source, and both in
-    the tuple the build reads."""
+    the tuple the build reads; both run their products on the tensor
+    cores (wgmma fed by TMA): the f32 kernel with TF32 operands at every
+    head dim (no ``mma.sync`` fallback), the bf16 kernel issuing the P_lo
+    product beside P_hi's."""
     assert kmod.SOURCES == (kmod.SOURCE_F32, kmod.SOURCE_BF16)
     assert [s.name for s in kmod.SOURCES] == ["flash_attention.cu",
                                               "flash_attention_sm90.cu"]
     for source in kmod.SOURCES:
         assert source.is_file()
+    f32 = kmod.SOURCE_F32.read_text()
     sm90 = kmod.SOURCE_BF16.read_text()
-    assert "wgmma.mma_async" in sm90 and "cp.async.bulk.tensor" in sm90
-    assert "fmaf" not in sm90                # no product on the CUDA cores
-    assert "bfloat16" not in kmod.SOURCE_F32.read_text()
+    for text in (f32, sm90):
+        assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
+        assert "fmaf" not in text            # no product on the CUDA cores
+    assert "f32.tf32.tf32" in f32 and "mma.sync" not in f32
+    assert "bfloat16" not in f32
+    assert "wgmma_rs<DP>(acc, pa," in sm90 and "wgmma_rs<DP>(acc, pl," in sm90
 
 
 def test_importing_the_kernels_needs_no_nvcc():

@@ -658,5 +658,5 @@ def test_client_sharded_guards(fl_workload):
         run_rounds(*args, cfg, device="cpu", shard="clients")
     for kw in ({"telemetry": True}, {"checkpoint_dir": "ckpt"},
                {"resume": True}, {"stop_after": 1}, {"stream": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
             run_rounds_client_sharded(*args, cfg, device="cpu", **kw)
