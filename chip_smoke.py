@@ -16,7 +16,9 @@ Phases, each printed as one JSON object per line:
    plain version's time and the least time the card could take (its bound):
    ``cwfl_round`` and its guarded variant ``cwfl_round_guard``, the latter
    on signals with NaN and ±inf and a dead Ã row; ``ota_aggregate`` (the
-   phase-1 OTA MAC) at the paper's MNIST width in f32 and bf16, JAX's
+   phase-1 OTA MAC) at the paper's MNIST width in f32 and bf16, at the
+   shapes the baselines' syncs give it (FedAvg and COTAF: one row of
+   weights, C=1; decentralized: C=K=50 rows, four launches of 16), JAX's
    ragged shape, and the shapes that take its other routes, its output
    poisoned with NaN before each launch, with ``torch.addmm`` as its
    library yardstick; ``flash_attention`` (f32: the 3×TF32 wgmma + TMA
@@ -33,13 +35,16 @@ Phases, each printed as one JSON object per line:
    ``scaled_dot_product_attention`` where there is none;
 4. reference — small runs on the card against the same runs on the CPU,
    with the same draws: the static slice, ``flaky-clients``, a
-   dead-cluster run whose faults kill whole clusters, and greedy decoding
-   of the reduced Gemma-2 (its local window cut to 8) with the same
-   weights;
+   dead-cluster run whose faults kill whole clusters, each other strategy
+   (``fedavg``, ``cotaf``, ``decentralized``, ``cwfl_prox``,
+   ``cotaf_prox``) static and COTAF under ``flaky-clients``, and greedy
+   decoding of the reduced Gemma-2 (its local window cut to 8) with the
+   same weights;
 5. slice — ``run_federated`` with CWFL on the static scenario at the full
    width of the paper's MNIST model (K=50 clients, C=3 clusters, the
    784-200-100-64-10 MLP, d=184,214) for a few rounds, with every kernel's
-   launch count over that run;
+   launch count over that run (``cwfl_round`` once a round,
+   ``ota_aggregate`` never);
 6. dist — the distribution slice at the same width, on the slice's
    paper-static state and its params after one round of local training:
    ``phase1_ota_flat`` (the ``ota_aggregate`` kernel), ``cwfl_aggregate_
@@ -52,6 +57,17 @@ Phases, each printed as one JSON object per line:
    ``mobile-fading`` and ``cluster-churn``: each fault round through the
    guarded kernel and no other, per-round live nodes, heads and mask mass,
    the test accuracy held to floors derived from the JAX package's runs;
+7a. strategies — the same width with ``fedavg``, ``cotaf``,
+   ``decentralized``, ``cwfl_prox`` and ``cotaf_prox``: the baselines'
+   syncs through ``ota_aggregate`` (once a FedAvg or COTAF round, four
+   times a decentralized one), the prox variants' local objective, the
+   round-5 accuracy held to floors from the JAX package's runs at the same
+   width (``scripts/jax_strategy_reference.py``);
+7b. quickstart — ``examples/quickstart_torch.main()`` on the card end to
+   end (K=16, 12 rounds of ``cwfl`` and of ``fedavg``), its final
+   accuracies held to floors from the JAX package's and the port's runs
+   over 16 seeds, then its ``run`` on inputs made on the CPU against the
+   same run on the CPU;
 8. serve — ``greedy_decode`` of Gemma-2 9B at its published width (f32,
    random weights drawn on the card): 2 requests of 4,608-token prompts,
    16 greedy tokens; prefill seconds, decode tokens/s, the kernel's
@@ -252,7 +268,9 @@ def kernel_phase(kmod, ref_fn, guard: bool = False):
 
 # ota_aggregate at the shape phase 1 gives it at the paper's MNIST width
 # (K=50 clients, C=3 clusters, d=184,214) in f32 and in bf16 (weights and
-# noise in the signals' dtype, as JAX's tests pass them), JAX's ragged shape
+# noise in the signals' dtype, as JAX's tests pass them), at the shapes the
+# baselines' syncs give it at that width (FedAvg and COTAF: one row of
+# weights; decentralized: K=50 rows, four launches), JAX's ragged shape
 # with f32 and with bf16 signals (f32 noise: the mixed instantiation), and
 # two shapes that take the wrapper's other routes: more clusters than one
 # launch holds (two launches) and weights beyond 48 KiB of shared memory.
@@ -260,6 +278,8 @@ OTA_SHAPES = (
     # label, K, C, d, signals dtype, weights and noise dtype
     ("main", 50, 3, 184214, torch.float32, torch.float32),
     ("main_bf16", 50, 3, 184214, torch.bfloat16, torch.bfloat16),
+    ("fedavg_cotaf", 50, 1, 184214, torch.float32, torch.float32),
+    ("decentralized", 50, 50, 184214, torch.float32, torch.float32),
     ("ragged", 16, 4, 2049, torch.float32, torch.float32),
     ("ragged_bf16_f32noise", 16, 4, 2049, torch.bfloat16, torch.float32),
     ("many_clusters", 40, 20, 3001, torch.float32, torch.float32),
@@ -288,11 +308,17 @@ def poisoned_launch(fn, out_shape, dtype):
     return out
 
 
+# The rows of the kernels summary: the shape, and the row's name.
+OTA_ROWS = (("main", "ota_aggregate"),
+            ("fedavg_cotaf", "ota_aggregate[C=1]"),
+            ("decentralized", "ota_aggregate[C=50]"))
+
+
 def ota_kernel_phase(omod, ref_fn):
     """ota_aggregate against its plain version at OTA_SHAPES, with
     ``torch.addmm(N, W, S)`` — one cuBLAS call computing the same function
-    (TF32 off) — beside it; returns the main-shape row of the kernels
-    summary (without its launch count)."""
+    (TF32 off) — beside it; returns the rows of the kernels summary for
+    OTA_ROWS (without their launch counts)."""
     bw, peak_f32, *_ = card_peaks(torch.cuda.get_device_name(0))
     rows = {}
     for label, K, C, d, dtype, wdtype in OTA_SHAPES:
@@ -315,7 +341,8 @@ def ota_kernel_phase(omod, ref_fn):
                 "launches_a_call": -(-C // omod.MAX_CLUSTERS),
                 "max_abs_err": err, "tol_abs_and_rel": tol,
                 "finite": bool(torch.isfinite(out.float()).all())}
-        if label in ("main", "main_bf16", "ragged"):
+        if label in ("main", "main_bf16", "fedavg_cotaf", "decentralized",
+                     "ragged"):
             # The least work: read S and N once, write y once (W is
             # O(C·K)); 2·C·K + C f32 operations a column on the CUDA cores.
             nbytes = (s.numel() * s.element_size()
@@ -323,6 +350,11 @@ def ota_kernel_phase(omod, ref_fn):
                       + C * d * s.element_size() + 4 * C * K)
             flops = d * (2 * C * K + C)
             bound_bytes, bound_ops = nbytes / bw * 1e3, flops / peak_f32 * 1e3
+            groups = -(-C // omod.MAX_CLUSTERS)
+            # The kernel's own design reads S once a launch.
+            line["bound_ms_bytes_s_once_a_launch"] = (
+                nbytes + (groups - 1) * s.numel() * s.element_size()
+            ) / bw * 1e3
             ms = time_cold(lambda: omod.ota_aggregate(s, w, n))
             plain_ms = time_cold(lambda: ref_fn(s, w, n))
             wl = w.to(dtype)
@@ -345,23 +377,31 @@ def ota_kernel_phase(omod, ref_fn):
         if line.get("library_max_abs_err", 0.0) > tol:
             raise AssertionError(f"the library yardstick computes another "
                                  f"function at {label}: {line}")
-    main, bf16 = rows["main"], rows["main_bf16"]
-    bound = max(main["bound_ms_bytes"], main["bound_ms_operations"])
-    return {"name": "ota_aggregate", "route": "cuda",
+    summary = []
+    for label, name in OTA_ROWS:
+        line = rows[label]
+        summary.append({
+            "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ota_aggregate.cu",
             "replaces": "src/repro/kernels/ota_aggregate.py:38",
-            "launches": None, "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bound,
-            "bound_by": ("bytes" if main["bound_ms_bytes"]
-                         >= main["bound_ms_operations"] else "operations"),
-            "library_ms": main["library_ms"], "library": "torch.addmm",
-            "device_ms": main["device_ms"],
-            "library_device_ms": main["library_device_ms"],
-            "ms_bf16": bf16["ms"], "device_ms_bf16": bf16["device_ms"],
-            "plain_ms_bf16": bf16["plain_ms"],
-            "bound_ms_bf16": max(bf16["bound_ms_bytes"],
-                                 bf16["bound_ms_operations"]),
-            "library_ms_bf16": bf16["library_ms"]}
+            "launches": None, "max_abs_err": line["max_abs_err"],
+            "ms": line["ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": max(line["bound_ms_bytes"],
+                            line["bound_ms_operations"]),
+            "bound_by": ("bytes" if line["bound_ms_bytes"]
+                         >= line["bound_ms_operations"] else "operations"),
+            "library_ms": line["library_ms"], "library": "torch.addmm",
+            "device_ms": line["device_ms"],
+            "library_device_ms": line["library_device_ms"],
+            "shape": {"K": line["K"], "C": line["C"], "d": line["d"]}})
+    bf16 = rows["main_bf16"]
+    summary[0].update(
+        ms_bf16=bf16["ms"], device_ms_bf16=bf16["device_ms"],
+        plain_ms_bf16=bf16["plain_ms"],
+        bound_ms_bf16=max(bf16["bound_ms_bytes"],
+                          bf16["bound_ms_operations"]),
+        library_ms_bf16=bf16["library_ms"])
+    return summary
 
 
 def dead_cluster_scenario():
@@ -406,10 +446,11 @@ def count_dead_rows(run):
 
 
 def reference_phase(label: str, scenario=None, rounds: int = 3,
-                    draws_seed: int = 0):
-    """A small run on the card against the same run on the CPU, with the
-    same draws (made on the CPU) and data: K=8, hidden 32.  Returns the
-    dead Ã rows each round of the card's run handed the kernel."""
+                    draws_seed: int = 0, strategy: str = "cwfl"):
+    """A small run of ``strategy`` on the card against the same run on the
+    CPU, with the same draws (made on the CPU) and data: K=8, hidden 32.
+    Returns the dead Ã rows each round of the card's run handed the CWFL
+    round kernel."""
     from repro_torch.core import TopologyConfig
     from repro_torch.models import make_mnist_mlp, nll_loss
     from repro_torch.sim import TorchDraws
@@ -418,7 +459,8 @@ def reference_phase(label: str, scenario=None, rounds: int = 3,
 
     init, apply = make_mnist_mlp(hidden=(32,))
     loss = lambda p, x, y: nll_loss(apply(p, x), y)   # noqa: E731
-    cfg = FLConfig(rounds=rounds, eval_samples=256, lr=0.05)
+    cfg = FLConfig(strategy=strategy, rounds=rounds, eval_samples=256,
+                   lr=0.05)
     runs, dead = {}, {}
     for dev in (DEVICE, "cpu"):
         runs[dev], dead[dev] = count_dead_rows(lambda: run_federated(
@@ -432,7 +474,7 @@ def reference_phase(label: str, scenario=None, rounds: int = 3,
         tree_leaves(gpu["final_params"]), tree_leaves(cpu["final_params"])))
     acc_err = max(abs(a - b) for a, b in zip(gpu["test_acc"],
                                             cpu["test_acc"]))
-    line = {"phase": "reference", "run": label,
+    line = {"phase": "reference", "run": label, "strategy": strategy,
             "train_loss_cuda": gpu["train_loss"],
             "train_loss_cpu": cpu["train_loss"], "loss_rel_err": loss_rel,
             "tol_loss_rel": 1e-4, "test_acc_cuda": gpu["test_acc"],
@@ -471,8 +513,9 @@ def full_width_workload():
     return init, apply, loss, topo, xs, ys, xte, yte
 
 
-def slice_phase(kmod, rounds: int = 5):
-    """run_federated at the paper's MNIST width on the card."""
+def slice_phase(kmod, omod, rounds: int = 5):
+    """run_federated at the paper's MNIST width on the card: one
+    ``cwfl_round`` launch a round and no ``ota_aggregate`` launch."""
     from repro_torch.training import FLConfig, run_federated
     from repro_torch.utils import tree_size
 
@@ -490,13 +533,14 @@ def slice_phase(kmod, rounds: int = 5):
         emit({"phase": "slice", "round": r, "train_loss": l, "test_acc": a})
 
     torch.cuda.reset_peak_memory_stats()
-    kmod.launches = kmod.launches_guard = 0
+    kmod.launches = kmod.launches_guard = omod.launches = 0
     t0 = time.perf_counter()
     h = run_federated(init, apply, loss, topo, xs, ys, xte, yte, cfg,
                       progress=progress, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, launches_guard = kmod.launches, kmod.launches_guard
+    ota_launches = omod.launches
 
     d = tree_size(h["final_params"])
     steady = (stamps[-1] - stamps[0]) / (rounds - 1)
@@ -508,14 +552,16 @@ def slice_phase(kmod, rounds: int = 5):
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "cwfl_round_launches": launches,
             "cwfl_round_guard_launches": launches_guard,
+            "ota_aggregate_launches": ota_launches,
             "train_loss": h["train_loss"], "test_acc": h["test_acc"]}
     emit(line)
     if d != 184214:
         raise AssertionError(f"flat dimension {d}, expected 184214")
-    if launches != rounds or launches_guard != 0:
-        raise AssertionError(f"cwfl_round launched {launches} times and "
-                             f"its guarded variant {launches_guard} in "
-                             f"{rounds} static rounds")
+    if launches != rounds or launches_guard != 0 or ota_launches != 0:
+        raise AssertionError(f"cwfl_round launched {launches} times, its "
+                             f"guarded variant {launches_guard} and "
+                             f"ota_aggregate {ota_launches} in {rounds} "
+                             f"static rounds")
     if not all(math.isfinite(x) for x in h["train_loss"]):
         raise AssertionError(f"non-finite train loss {h['train_loss']}")
     if not h["train_loss"][-1] < h["train_loss"][0]:
@@ -796,6 +842,171 @@ def scenario_phase(kmod, static_acc, rounds: int = 5):
                 f"{STATIC_GAP}")
         guarded += launches_guard
     return guarded
+
+
+# The other strategies at full width (static): ota_aggregate launches a
+# round (FedAvg and COTAF one row of weights, decentralized K=50 rows in
+# groups of 16) and cwfl_round launches a round, and the least round-5 test
+# accuracy.  The floors come from the JAX package at this configuration on
+# the CPU (scripts/jax_strategy_reference.py --seed S, S = 0, 3, 6, 9): the
+# lowest round-5 accuracy of the strategy over the four seeds, less 0.02,
+# rounded down to 0.01.
+STRATEGY_RUNS = (
+    # strategy, ota_aggregate launches a round, cwfl_round's, floor
+    ("fedavg", 1, 0, 0.88),          # JAX: 0.910-0.989
+    ("cotaf", 1, 0, 0.89),           # 0.919-0.990
+    ("decentralized", 4, 0, 0.88),   # 0.910-0.989
+    ("cwfl_prox", 0, 1, 0.87),       # 0.900-0.992
+    ("cotaf_prox", 1, 0, 0.89),      # 0.919-0.989
+)
+
+
+def strategies_phase(omod, kmod, rounds: int = 5):
+    """run_federated at full width with each strategy of STRATEGY_RUNS:
+    its syncs' kernel launches, counted from 0 for each run, and its
+    round-5 accuracy against its floor.  Returns the ``ota_aggregate``
+    launches of the one-row runs (FedAvg, COTAF, COTAF-Prox) and of the
+    decentralized one."""
+    from repro_torch.training import FLConfig, run_federated
+
+    workload = full_width_workload()
+    one_row = many_rows = 0
+    for name, ota_a_round, cwfl_a_round, floor in STRATEGY_RUNS:
+        cfg = FLConfig(strategy=name, rounds=rounds, num_clusters=3,
+                       snr_db=40.0, seed=0)
+        stamps = []
+        torch.cuda.synchronize()
+        omod.launches = kmod.launches = kmod.launches_guard = 0
+        t0 = time.perf_counter()
+        h = run_federated(*workload, cfg,
+                          progress=lambda *_: stamps.append(
+                              time.perf_counter()), device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"ota_aggregate": omod.launches,
+                    "cwfl_round": kmod.launches,
+                    "cwfl_round_guard": kmod.launches_guard}
+        line = {"phase": "strategies", "strategy": name, "rounds": rounds,
+                "wall_s": wall, "rounds_per_s": rounds / wall,
+                "steady_rounds_per_s": (rounds - 1) / (stamps[-1]
+                                                       - stamps[0]),
+                "launches": launches, "acc_floor": floor,
+                "train_loss": h["train_loss"], "test_acc": h["test_acc"]}
+        emit(line)
+        want = {"ota_aggregate": ota_a_round * rounds,
+                "cwfl_round": cwfl_a_round * rounds, "cwfl_round_guard": 0}
+        if launches != want:
+            raise AssertionError(f"{name}: kernel launches {launches}, "
+                                 f"expected {want} in {rounds} rounds")
+        if not all(math.isfinite(x) for x in h["train_loss"]):
+            raise AssertionError(f"{name}: non-finite train loss {line}")
+        if not h["train_loss"][-1] < h["train_loss"][0]:
+            raise AssertionError(f"{name}: train loss did not fall {line}")
+        if not h["test_acc"][-1] >= floor:
+            raise AssertionError(f"{name}: round-{rounds} test accuracy "
+                                 f"{h['test_acc'][-1]} < {floor}")
+        if name == "decentralized":
+            many_rows += launches["ota_aggregate"]
+        else:
+            one_row += launches["ota_aggregate"]
+    return one_row, many_rows
+
+
+# The quickstart's final accuracies on the card's own draws must reach
+# these floors.  At 12 rounds of 5 steps at lr 1e-3 the accuracy still
+# climbs steeply, so it spreads widely with the draws: over S = 0..15 the
+# JAX package reaches 0.678-0.900 (cwfl) and 0.736-0.922 (fedavg) at round
+# 12 (scripts/jax_strategy_reference.py --quickstart --seed S), the port on
+# the CPU 0.589-0.973 and 0.610-0.981 (scripts/quickstart_seeds.py).  The
+# floor is the lowest of the 32 runs less 0.05, rounded down to 0.01: it
+# catches a run that does not learn; the run against the CPU on the same
+# inputs below is the check of the numbers.
+QUICKSTART_FLOOR = {"cwfl": 0.53, "fedavg": 0.56}
+
+
+def quickstart_phase(omod, kmod):
+    """``examples/quickstart_torch.main()`` on the card end to end, its
+    printing included: 12 rounds of ``cwfl`` (one ``cwfl_round`` launch a
+    round) and 12 of ``fedavg`` (one ``ota_aggregate`` launch a round),
+    each final accuracy against its floor.  Then its ``run`` on inputs and
+    draws made on the CPU, on the card against the CPU, under the
+    reference phase's gates."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.core import TopologyConfig, make_topology
+    from repro_torch.data import (SyntheticImageConfig,
+                                  make_synthetic_images, partition_iid)
+    from repro_torch.sim import TorchDraws
+    from repro_torch.utils import tree_leaves
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    torch.cuda.synchronize()
+    omod.launches = kmod.launches = kmod.launches_guard = 0
+    t0 = time.perf_counter()
+    out = quickstart.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ota_aggregate": omod.launches, "cwfl_round": kmod.launches,
+                "cwfl_round_guard": kmod.launches_guard}
+    hist = out["histories"]
+
+    # The same run() on the card and on the CPU, from the CPU's inputs.
+    K = quickstart.K
+    topo = make_topology(0, TopologyConfig(num_clients=K, num_hotspots=3),
+                         device="cpu")
+    (xtr, ytr), (xte, yte) = make_synthetic_images(
+        1, SyntheticImageConfig.mnist_like(6000, 1500), device="cpu")
+    xs, ys = partition_iid(2, xtr, ytr, K)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[dev] = quickstart.run(
+                topo, (xs, ys, xte, yte), first=0, device=dev,
+                draws=lambda: TorchDraws(0, "cpu"))["histories"]
+    errs = {}
+    for name in hist:
+        gpu, cpu = runs[DEVICE][name], runs["cpu"][name]
+        errs[name] = {
+            "loss_rel": max(abs(a / b - 1) for a, b in zip(
+                gpu["train_loss"], cpu["train_loss"])),
+            "acc_abs": max(abs(a - b) for a, b in zip(gpu["test_acc"],
+                                                      cpu["test_acc"])),
+            "param_abs": max(
+                float((a.cpu() - b).abs().max()) for a, b in zip(
+                    tree_leaves(gpu["final_params"]),
+                    tree_leaves(cpu["final_params"])))}
+    line = {"phase": "quickstart", "wall_s": wall, "launches": launches,
+            "heads": out["plan"].heads.tolist(),
+            "channel_uses": out["channel_uses"],
+            "floors": QUICKSTART_FLOOR,
+            **{f"{name}_{key}": hist[name][key] for name in hist
+               for key in ("train_loss", "test_acc")},
+            "cuda_vs_cpu": errs,
+            "tol": {"loss_rel": 1e-4, "acc_abs": 2 / 1024,
+                    "param_abs": 1e-4}}
+    emit(line)
+    rounds = len(hist["cwfl"]["train_loss"])
+    want = {"ota_aggregate": rounds, "cwfl_round": rounds,
+            "cwfl_round_guard": 0}
+    if rounds != 12 or launches != want:
+        raise AssertionError(f"quickstart: kernel launches {launches}, "
+                             f"expected {want} over 12 rounds of each run")
+    for name, h in hist.items():
+        if not (all(math.isfinite(x) for x in h["train_loss"])
+                and h["train_loss"][-1] < h["train_loss"][0]
+                and h["final_acc"] >= QUICKSTART_FLOOR[name]):
+            raise AssertionError(f"quickstart: the {name} run failed its "
+                                 f"checks: {line}")
+        e = errs[name]
+        if not (e["loss_rel"] <= 1e-4 and e["acc_abs"] <= 2 / 1024
+                and e["param_abs"] <= 1e-4):
+            raise AssertionError(f"quickstart: the {name} run on the card "
+                                 f"disagrees with the CPU: {line}")
 
 
 def profile_phase(scenario: str = "paper-static", rounds: int = 6):
@@ -1379,10 +1590,13 @@ def main() -> None:
           "serial_cold_seconds": serial_build_seconds(sources),
           "libraries": libraries})
 
-    rows = [kernel_phase(kmod, cwfl_round_ref),
-            kernel_phase(kmod, cwfl_round_ref, guard=True),
-            ota_kernel_phase(omod, ota_aggregate_ref),
-            *flash_kernel_phase(fa, flash_attention_ref)]
+    cwfl_row = kernel_phase(kmod, cwfl_round_ref)
+    guard_row = kernel_phase(kmod, cwfl_round_ref, guard=True)
+    ota_row, ota_c1_row, ota_c50_row = ota_kernel_phase(omod,
+                                                        ota_aggregate_ref)
+    fa_row, fa_bf16_row = flash_kernel_phase(fa, flash_attention_ref)
+    rows = [cwfl_row, guard_row, ota_row, ota_c1_row, ota_c50_row, fa_row,
+            fa_bf16_row]
     reference_phase("paper-static")
     reference_phase("flaky-clients", "flaky-clients")
     dead = reference_phase("dead-cluster", dead_cluster_scenario(),
@@ -1390,16 +1604,23 @@ def main() -> None:
     if not any(dead):
         raise AssertionError(f"the dead-cluster run handed the kernel no "
                              f"dead row: {dead}")
+    for name, *_ in STRATEGY_RUNS:
+        reference_phase(name, strategy=name)
+    reference_phase("cotaf-flaky-clients", "flaky-clients",
+                    strategy="cotaf")
     lm_reference_phase(fa)
-    rows[0]["launches"], static = slice_phase(kmod)
-    rows[2]["launches"] = dist_phase(omod, kmod, static)
-    rows[1]["launches"] = scenario_phase(kmod, static["test_acc"])
-    rows[3]["launches"], params, batch, cfg, gate = serve_phase(fa)
+    cwfl_row["launches"], static = slice_phase(kmod, omod)
+    ota_row["launches"] = dist_phase(omod, kmod, static)
+    guard_row["launches"] = scenario_phase(kmod, static["test_acc"])
+    ota_c1_row["launches"], ota_c50_row["launches"] = strategies_phase(
+        omod, kmod)
+    quickstart_phase(omod, kmod)
+    fa_row["launches"], params, batch, cfg, gate = serve_phase(fa)
     serve_profile_phase(params, batch, cfg)
     del params
     torch.cuda.empty_cache()
-    rows[4]["launches"] = serve_bf16_phase(fa, flash_attention_ref, gate,
-                                           batch)
+    fa_bf16_row["launches"] = serve_bf16_phase(fa, flash_attention_ref,
+                                               gate, batch)
     del gate, batch
     torch.cuda.empty_cache()
     profile_phase()

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import COTAFState, DecentralizedState
 from repro_torch.core.clustering import ClusterPlan
 from repro_torch.core.cwfl import CWFLState
 from repro_torch.core.topology import Topology, TopologyConfig, link_stats
@@ -72,6 +73,27 @@ def cwfl_state_from_arrays(plan, client_power, total_power,
         consensus_noise_std=_tensor(consensus_noise_std, device,
                                     torch.float32),
         mix=_tensor(mix, device, torch.float32))
+
+
+def cotaf_state_from_arrays(client_power, total_power, noise_std, server,
+                            *, device) -> COTAFState:
+    """A `COTAFState` from the reference's arrays (``server`` may be
+    ``None``)."""
+    return COTAFState(
+        client_power=_tensor(client_power, device, torch.float32),
+        total_power=float(total_power),
+        noise_std=_tensor(noise_std, device, torch.float32),
+        server=None if server is None else _tensor(server, device,
+                                                   torch.int64))
+
+
+def decentralized_state_from_arrays(mixing, noise_std, total_power, *,
+                                    device) -> DecentralizedState:
+    """A `DecentralizedState` from the reference's arrays."""
+    return DecentralizedState(
+        mixing=_tensor(mixing, device, torch.float32),
+        noise_std=_tensor(noise_std, device, torch.float32),
+        total_power=float(total_power))
 
 
 def fl_plan_from_arrays(fields: dict, state: CWFLState) -> FLPlan:

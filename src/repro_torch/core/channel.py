@@ -1,7 +1,8 @@
-"""Wireless uplink channel model: power control and precoding (paper §III).
+"""Wireless uplink channel model: power control, precoding, OTA MAC
+(paper §III).
 
-Port of `repro.core.channel` (water-filling, eq. (5) precoding, the
-SNR-to-noise budget).
+Port of `repro.core.channel` (water-filling, eq. (5) precoding, the noisy
+superposition MAC of eq. (4), the SNR-to-noise budget).
 """
 from __future__ import annotations
 
@@ -47,3 +48,17 @@ def precode_amplitude(p_k: torch.Tensor,
 def snr_db_to_noise_var(total_power: float, snr_db: float) -> float:
     """σ² such that overall SNR ξ = P/σ² equals ``snr_db`` (paper: 40 dB)."""
     return total_power / (10.0 ** (snr_db / 10.0))
+
+
+def ota_mac(signals: torch.Tensor, amplitudes: torch.Tensor,
+            mask: torch.Tensor, noise: torch.Tensor,
+            noise_std) -> torch.Tensor:
+    """Noisy superposition MAC (eq. 4 after channel inversion):
+    y = Σ_k mask_k · a_k · s_k + σ·w.
+
+    signals: (K, d) channel-inverted transmit signals; amplitudes: (K,)
+    per-client sqrt(P_k^t); mask: (K,) {0,1} membership of this receiver's
+    MAC; noise: (d,) unit normals w (JAX draws ``normal(key, (d,))``);
+    noise_std: the receiver's σ.  Returns (d,)."""
+    y = torch.einsum("k,kd->d", amplitudes * mask, signals)
+    return y + noise_std * noise.to(y.dtype)

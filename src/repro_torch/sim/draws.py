@@ -3,8 +3,9 @@
 JAX and torch can never share a random stream (threefry against Philox),
 so everything random that a run consumes comes from a :class:`Draws`
 object: K-means' first centre, the initial params, each round's minibatch
-indices and phase-1/phase-2 unit normals, and a dynamic scenario's draws
-(channel process, CSI error, schedule, re-clustering, faults).
+indices and sync noise (CWFL's phase-1/phase-2 unit normals, or the one
+matrix of a baseline's sync), and a dynamic scenario's draws (channel
+process, CSI error, schedule, re-clustering, faults).
 `TorchDraws` draws them from ``torch.Generator``s; a test can pass an
 object that replays the JAX package's draws instead.
 
@@ -41,6 +42,11 @@ class Draws(Protocol):
     def phase_noise(self, round_: int, num_clusters: int, d: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Two (C, d) f32 unit-normal matrices: phase 1, phase 2."""
+
+    def sync_noise(self, round_: int, rows: int, d: int) -> torch.Tensor:
+        """One (rows, d) f32 unit-normal matrix, a baseline's sync noise
+        (COTAF: one row; decentralized: K), at the place of the round's
+        aggregation draws."""
 
     def channel_init(self, num_clients: int) -> torch.Tensor:
         """(K, 2) uniforms for the channel process's first waypoints."""
@@ -94,6 +100,11 @@ class TorchDraws:
         del round_
         return tuple(torch.randn(num_clusters, d, generator=self._rounds,
                                  device=self.device) for _ in range(2))
+
+    def sync_noise(self, round_: int, rows: int, d: int) -> torch.Tensor:
+        del round_
+        return torch.randn(rows, d, generator=self._rounds,
+                           device=self.device)
 
     def _uniform(self, *shape) -> torch.Tensor:
         return torch.rand(shape, generator=self._scenario,

@@ -69,17 +69,26 @@ def _tree_where(mask: torch.Tensor, a, b):
         for x, y in zip(a_leaves, b_leaves)])
 
 
+def _to_device(noise, device):
+    """A strategy's sync noise (``None``, a tensor or a tuple of them) on
+    ``device``."""
+    if isinstance(noise, tuple):
+        return tuple(x.to(device) for x in noise)
+    return None if noise is None else noise.to(device)
+
+
 def _prepare(init_fn: Callable, loss_fn: Callable, topology: Topology, cfg,
              strategy, draws: Draws, n_k: int, device):
     """A run's offline strategy state, initial consensus, optimizer and
     local runner, drawn in the same order by the unsharded loop and the
-    client-sharded one (`repro_torch.sim.sharded`)."""
-    if cfg.mu_prox > 0:
-        raise NotImplementedError("FedProx (mu_prox > 0) is not ported yet")
+    client-sharded one (`repro_torch.sim.sharded`).  The FedProx µ_p
+    resolves through the strategy (``cwfl_prox`` and ``cotaf_prox`` carry
+    the paper's; ``cfg.mu_prox > 0`` overrides it)."""
     # E epochs of minibatch SGD over each client's n_k examples.
     steps = max(cfg.local_epochs * (n_k // cfg.batch_size), 1)
     optimizer = sgd(cfg.lr)
-    local_run = make_local_runner(loss_fn, optimizer, cfg.batch_size, steps)
+    local_run = make_local_runner(loss_fn, optimizer, cfg.batch_size, steps,
+                                  strategy.effective_mu_prox(cfg.mu_prox))
     state = strategy.init(topology, draws, cfg, snr_db=cfg.snr_db)
     consensus = tree_map(lambda x: x.to(device), draws.init_params(init_fn))
     return state, consensus, optimizer, local_run, steps
@@ -98,10 +107,12 @@ class _Dynamics:
     (the JAX engine's ``dynamic_sync``).  Each round, in JAX's order: the
     channel step and its view; the schedule's mask; the fault step
     (``alive``, transmit outages folded into the mask, quarantine); the CSI
-    error; re-clustering every ``recluster_every`` rounds; the head-failure
-    handoff; the state rebuild; the aggregation; the receive-side fold.
-    ``records`` keeps, per round, the live nodes, the mask's mass, the
-    quarantined clients and the heads, on the device."""
+    error if the strategy water-fills; re-clustering every
+    ``recluster_every`` rounds if it has a cluster plan; the head-failure
+    handoff; the state rebuild; the aggregation; the receive-side fold,
+    unless the strategy's ``receive_mask`` is ``None``.  ``records`` keeps,
+    per round, the live nodes, the mask's mass, the quarantined clients
+    and, for a strategy with a cluster plan, the heads, on the device."""
 
     def __init__(self, scenario: Scenario, strategy, topology: Topology,
                  topo_cfg: Optional[TopologyConfig], cfg, state0,
@@ -122,9 +133,11 @@ class _Dynamics:
         if scenario.channel.evolves_geometry:
             self.chan = init_channel(topology, topo_cfg,
                                      draws.channel_init(K).to(device))
-        self.plan = state0.plan if scenario.recluster_every > 0 else None
-        self.records = {"alive": [], "mask_mass": [], "quarantined": [],
-                        "heads": []}
+        self.plan = (state0.plan if strategy.reclusters
+                     and scenario.recluster_every > 0 else None)
+        self.records = {"alive": [], "mask_mass": [], "quarantined": []}
+        if strategy.reclusters:
+            self.records["heads"] = []
 
     def sync(self, t: int, trained, pre_round, consensus, noise):
         """One sync of round ``t`` on the locally ``trained`` params;
@@ -166,7 +179,7 @@ class _Dynamics:
                 quarantined = K - q.sum()
 
         csi = None
-        if sc.channel.csi_error_std > 0:
+        if strategy.water_fills and sc.channel.csi_error_std > 0:
             csi = csi_perturbation(self.draws.csi_normals(t, K).to(dev),
                                    sc.channel.csi_error_std)
 
@@ -185,12 +198,13 @@ class _Dynamics:
                                          alive=alive)
         new, new_consensus = strategy.aggregate(trained, state, noise,
                                                 mask=mask, alive=alive)
-        if mask is not None:
-            recv = strategy.receive_mask(state, mask, alive=alive)
+        recv = (strategy.receive_mask(state, mask, alive=alive)
+                if mask is not None else None)
+        if recv is not None:
             # Absent clients keep their locally trained params, receivers
             # forced present keep the aggregate; if nobody took part the
-            # sync is skipped and the last consensus stands — decided on
-            # the device.
+            # sync is skipped and the last consensus stands (which also
+            # discards FedAvg's 0/0 weights) — decided on the device.
             present = (torch.sum(mask) > 0).to(torch.float32)
             new = _tree_where(recv * present, new, trained)
             new_consensus = _tree_where(present[None], new_consensus,
@@ -202,7 +216,8 @@ class _Dynamics:
         rec["mask_mass"].append(torch.sum(mask) if mask is not None else
                                 torch.tensor(float(K), device=dev))
         rec["quarantined"].append(quarantined)
-        rec["heads"].append(state.plan.heads)
+        if "heads" in rec:
+            rec["heads"].append(state.plan.heads)
         return new, new_consensus
 
     def _to_device(self, draws):
@@ -236,8 +251,8 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
 
     The history holds per-round ``train_loss`` and ``test_acc`` (T,) and the
     final consensus; a dynamic scenario adds ``scenario``: per round, the
-    live nodes, the mask's mass, the quarantined clients (T,) and the
-    heads (T, C).
+    live nodes, the mask's mass, the quarantined clients (T,) and, for a
+    strategy with a cluster plan, the heads (T, C).
     """
     if isinstance(scenario, str):
         scenario = get_scenario(scenario)
@@ -289,8 +304,8 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
             idx = draws.batch_indices(t, K, steps, cfg.batch_size, n_k)
             trained, opt_state, client_loss = local_run(
                 stacked, opt_state, xs, ys, idx.to(device))
-            unit1, unit2 = draws.phase_noise(t, cfg.num_clusters, d)
-            noise = (unit1.to(device), unit2.to(device))
+            noise = _to_device(strategy.sync_noise(
+                draws, t, K, cfg.num_clusters, d), device)
             with torch.no_grad():
                 if dynamics is None:
                     stacked, consensus = strategy.aggregate(trained, state,

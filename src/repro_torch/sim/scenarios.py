@@ -11,8 +11,8 @@ re-clustering cadence and (optionally) an SNR grid for Monte-Carlo sweeps.
 * ``straggler-heavy`` — 25% i.i.d. dropout plus three deterministic
   stragglers missing every third round, on the static channel.
 * ``straggler-prox``  — the same schedule, pinning the ``cwfl_prox``
-  strategy (not ported: a run under it uses ``cfg.strategy``, with a
-  warning).
+  strategy (a run under it uses ``cfg.strategy``, with a warning if that
+  is another).
 * ``snr-sweep``       — static channel and an SNR grid for Monte-Carlo
   sweeps; `run_rounds` runs it as the static scenario at ``cfg.snr_db``.
 * ``cluster-churn``   — fading and mobility strong enough that the SNR

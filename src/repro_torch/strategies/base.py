@@ -2,11 +2,14 @@
 
 A :class:`Strategy` owns one aggregation algorithm's surface: offline
 setup (``init``), the per-round rebuild of its state from a channel view
-(``state_from_view``), the sync round (``aggregate``), the receive side of
-a masked round (``receive_mask``), the head-failure handoff
-(``on_head_failure``) and re-clustering (``recluster``).  Every front door
-resolves a strategy by name through :func:`get_strategy`.  A capability
-flag says which executors a strategy supports.
+(``state_from_view``), the round's noise (``sync_noise``, drawn through
+the draw seam), the sync round (``aggregate``), the receive side of a
+masked round (``receive_mask``), the head-failure handoff
+(``on_head_failure``), re-clustering (``recluster``) and the channel uses
+a round costs (``channel_uses``).  Every front door resolves a strategy by
+name through :func:`get_strategy`.  Capability flags say which executors
+and which scenario hooks apply to a strategy.  JAX's ``telemetry`` hook
+is not ported.
 """
 from __future__ import annotations
 
@@ -22,11 +25,23 @@ class Strategy:
     sync round."""
 
     name: str
+    #: Default FedProx µ_p of the local objective (paper §V); 0 = plain
+    #: SGD.  ``FLConfig.mu_prox > 0`` overrides it (:meth:`effective_mu_prox`).
+    mu_prox: float = 0.0
 
     #: Its sync runs as a client-axis collective, so ``run_rounds(...,
     #: shard="clients")`` can split the K clients over the ranks of a
     #: process group (`repro_torch.sim.sharded`).
     supports_client_sharding: ClassVar[bool] = False
+    #: The round state depends on the connectivity graph
+    #: (``ChannelView.adjacency``), not only on the link gains.
+    needs_graph: ClassVar[bool] = False
+    #: Power is water-filled from channel estimates, so imperfect CSI
+    #: (`repro_torch.sim.processes.csi_perturbation`) perturbs it.
+    water_fills: ClassVar[bool] = False
+    #: The state carries a cluster plan that re-clustering
+    #: (``Scenario.recluster_every``) and the head-failure handoff replace.
+    reclusters: ClassVar[bool] = False
 
     def init(self, topology, draws, cfg, snr_db: Optional[float] = None
              ) -> State:
@@ -46,6 +61,15 @@ class Strategy:
         (K,) node-up vector of a fault scenario."""
         raise NotImplementedError
 
+    def sync_noise(self, draws, round_: int, num_clients: int,
+                   num_clusters: int, d: int):
+        """The unit-normal noise one sync of round ``round_`` consumes,
+        from ``draws`` (`repro_torch.sim.draws.Draws`), on the draws'
+        device; :meth:`aggregate` takes it as ``noise``.  Default: none
+        (a noiseless sync)."""
+        del draws, round_, num_clients, num_clusters, d
+        return None
+
     def aggregate(self, stacked_params, state: State, noise, mask=None,
                   alive=None):
         """One sync round on a K-stacked parameter tree with the round's
@@ -59,18 +83,40 @@ class Strategy:
         """(K,) receive-side participation of a masked round: which clients
         adopt the aggregate (1) and which keep their locally-trained params
         (0).  Nodes the aggregation forces present keep the aggregate they
-        hold, if they are up."""
-        raise NotImplementedError
+        hold, if they are up.  ``None`` means the aggregate already holds
+        the absences (decentralized's pruned graph): the engine then folds
+        nothing on the receive side and never skips the sync.  Default:
+        the mask itself."""
+        del state, alive
+        return mask
 
     def on_head_failure(self, state0: State, plan, view, alive):
         """Repair the round's infrastructure after node crashes, before
-        :meth:`state_from_view`; called every round of a fault scenario."""
-        raise NotImplementedError
+        :meth:`state_from_view`; called every round of a fault scenario.
+        ``plan`` is the round's cluster plan, ``None`` for a strategy
+        without one.  Default: nothing to repair, ``plan`` back."""
+        del state0, view, alive
+        return plan
 
     def recluster(self, view, num_clusters: int, first: int):
         """A new cluster plan from a channel view; ``first`` is K-means'
-        first centre.  Called every ``Scenario.recluster_every`` rounds."""
-        raise NotImplementedError
+        first centre.  Called every ``Scenario.recluster_every`` rounds,
+        and only if :attr:`reclusters`."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no cluster plan to rebuild")
+
+    def channel_uses(self, num_clients: int,
+                     num_clusters: Optional[int] = None, participants=None):
+        """OTA channel uses (MAC slots) one sync round takes, the paper's
+        Fig. 4 cost axis; ``participants`` is a masked round's count.
+        Default: an orchestrator-free genie (FedAvg), zero."""
+        del num_clients, num_clusters, participants
+        return 0
+
+    def effective_mu_prox(self, cfg_mu: float) -> float:
+        """FedProx µ_p of the local runner: an explicit ``FLConfig.mu_prox``
+        > 0 wins, else the strategy's default."""
+        return cfg_mu if cfg_mu > 0 else self.mu_prox
 
 
 _REGISTRY: dict[str, Strategy] = {}

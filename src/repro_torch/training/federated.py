@@ -24,7 +24,7 @@ class FLConfig:
     lr: float = 1e-3                 # paper: 0.001
     num_clusters: int = 3            # paper: 3 optimal
     snr_db: Optional[float] = 40.0   # paper: overall SNR 40 dB
-    mu_prox: float = 0.0             # FedProx µ_p (not ported: must be 0)
+    mu_prox: float = 0.0             # FedProx µ_p (0 = the strategy's default)
     eval_samples: int = 2048
     seed: int = 0
 

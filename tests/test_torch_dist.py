@@ -507,7 +507,8 @@ def _mlp():
 
 def _sharded_job(rank, world, p):
     """The sharded sync on this rank's clients; a short run of
-    ``run_rounds(shard="clients")``; the divisibility guard."""
+    ``run_rounds(shard="clients")``, with ``cwfl`` and with ``cwfl_prox``;
+    the divisibility guard."""
     local = {k: {n: torch.from_numpy(v[rank * 4:(rank + 1) * 4])
                  for n, v in sub.items()} for k, sub in p["tree"].items()}
     new, cons = _client_sharded_sync(local, p["state"], p["sync_noise"])
@@ -522,6 +523,10 @@ def _sharded_job(rank, world, p):
     out["train_loss"] = h["train_loss"].numpy()
     out["test_acc"] = h["test_acc"].numpy()
     out["final_params"] = [x.numpy() for x in tree_leaves(h["final_params"])]
+    prox = run_rounds(init, apply, loss, topo, xs, ys, xte, yte,
+                      dataclasses.replace(p["cfg"], strategy="cwfl_prox"),
+                      draws=p["draws"], device="cpu", shard="clients")
+    out["prox_train_loss"] = prox["train_loss"].numpy()
     try:
         run_rounds(init, apply, loss, topo, xs[:7], ys[:7], xte, yte,
                    p["cfg"], draws=p["draws"], device="cpu",
@@ -594,6 +599,11 @@ def test_client_sharded_across_two_ranks(fl_workload, tmp_path):
     unsharded = run_rounds(init, apply, loss, ttopo,
                            *(torch.from_numpy(a) for a in data), cfg,
                            draws=draws, device="cpu")
+    # CWFL-Prox shares the sharded run's local runner (FedProx's µ_p).
+    unsharded_prox = run_rounds(
+        init, apply, loss, ttopo, *(torch.from_numpy(a) for a in data),
+        dataclasses.replace(cfg, strategy="cwfl_prox"), draws=draws,
+        device="cpu")
 
     ranks = _spawn(_sharded_job, 2, {
         "tree": tree, "state": _carry_state(jstate),
@@ -612,6 +622,11 @@ def test_client_sharded_across_two_ranks(fl_workload, tmp_path):
                                    rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(got["test_acc"],
                                    unsharded["test_acc"].numpy(), atol=1e-2)
+        np.testing.assert_allclose(got["prox_train_loss"],
+                                   unsharded_prox["train_loss"].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        assert not np.allclose(got["prox_train_loss"], got["train_loss"],
+                               rtol=1e-6, atol=0)
         np.testing.assert_allclose(got["train_loss"],
                                    np.asarray(ref["train_loss"]), rtol=1e-4)
         np.testing.assert_allclose(got["test_acc"],

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` nor
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, nor
+``chip_smoke.py``, nor ``examples/quickstart_torch.py`` imports ``jax`` or
+the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -276,14 +276,15 @@ def workload():
 
 
 def _run_both(workload, scenario, rounds=ROUNDS, poison=None,
-              telemetry=False):
+              telemetry=False, strategy="cwfl"):
     topo, tcfg, xs, ys, xte, yte = workload
     if poison is not None:
         xs = xs.copy()
         xs[poison] = np.nan
     jinit, japply = jsmall.make_mnist_mlp(hidden=(32,))
     jloss = lambda p, x, y: jsmall.nll_loss(japply(p, x), y)   # noqa: E731
-    jcfg = JaxFLConfig(rounds=rounds, snr_db=40.0, eval_samples=EVAL, seed=0)
+    jcfg = JaxFLConfig(strategy=strategy, rounds=rounds, snr_db=40.0,
+                       eval_samples=EVAL, seed=0)
     jscen = JAX_SCENARIOS[scenario]
     if telemetry:
         ref = jengine.run_rounds(jinit, japply, jloss, topo, jnp.asarray(xs),
@@ -301,7 +302,8 @@ def _run_both(workload, scenario, rounds=ROUNDS, poison=None,
                                 device="cpu")
     init, apply = tsmall.make_mnist_mlp(hidden=(32,))
     loss = lambda p, x, y: tsmall.nll_loss(apply(p, x), y)   # noqa: E731
-    cfg = FLConfig(rounds=rounds, snr_db=40.0, eval_samples=EVAL, seed=0)
+    cfg = FLConfig(strategy=strategy, rounds=rounds, snr_db=40.0,
+                   eval_samples=EVAL, seed=0)
     n_k = xs.shape[1]
     steps = n_k // cfg.batch_size
     data = tuple(torch.from_numpy(np.array(a)) for a in (xs, ys, xte, yte))

@@ -9,7 +9,9 @@ port through its draw seam: ``prepare`` splits (state, init, rounds)
 (`repro/core/clustering.py`), each round splits (local, aggregation), the
 minibatch indices are ``randint`` per client and step
 (`repro/training/local.py`), and the aggregation key splits into the
-phase-1 and phase-2 noise (`repro/core/cwfl.py`)."""
+phase-1 and phase-2 noise (`repro/core/cwfl.py`); a baseline's sync
+draws its one noise matrix from the aggregation key itself, leaf by leaf
+(`repro/core/baselines.py`, ``_mix_rows``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,17 +36,20 @@ K, C, ROUNDS, NUM_TRAIN, EVAL = 8, 3, 3, 1920, 256
 class JaxDraws:
     """The JAX engine's draws for one run, replayed through the seam."""
 
-    def __init__(self, init_fn, cfg, n_k, steps):
+    def __init__(self, init_fn, cfg, n_k, steps, num_clients=K):
         k_state, k_init, k_rounds = jax.random.split(
             jax.random.PRNGKey(cfg.seed), 3)
+        K, C = num_clients, cfg.num_clusters
         self.first = int(jax.random.randint(k_state, (), 0, K))
         self.params = jax.tree.map(np.asarray, init_fn(k_init))
         leaves = [np.broadcast_to(x, (K,) + x.shape)
                   for x in jax.tree.leaves(self.params)]
         ones = jnp.ones((C,), jnp.float32)
-        self.idx, self.noise = [], []
+        self.leaves = leaves
+        self.idx, self.noise, self.k_agg = [], [], []
         for rkey in jax.random.split(k_rounds, cfg.rounds):
             k_local, k_agg = jax.random.split(rkey)
+            self.k_agg.append(k_agg)
             self.idx.append(np.stack([np.stack([
                 np.asarray(jax.random.randint(k, (cfg.batch_size,), 0, n_k))
                 for k in jax.random.split(ck, steps)])
@@ -64,6 +69,11 @@ class JaxDraws:
 
     def phase_noise(self, round_, num_clusters, d):
         return tuple(torch.from_numpy(np.array(x)) for x in self.noise[round_])
+
+    def sync_noise(self, round_, rows, d):
+        return torch.from_numpy(np.array(jcwfl._flat_leaf_noise(
+            self.k_agg[round_], self.leaves, rows,
+            jnp.ones((rows,), jnp.float32))))
 
 
 @pytest.fixture(scope="module")
@@ -143,13 +153,40 @@ def test_run_federated_needs_a_card_unless_told_cpu(workload):
 
 
 def test_run_federated_rejects_unported_scenarios(workload):
-    """Every registered scenario runs; FedProx (``mu_prox > 0``, what
-    ``straggler-prox``'s ``cwfl_prox`` would set) is not ported."""
+    """Every registered scenario and strategy is ported: the call that
+    once raised ``NotImplementedError`` — FedProx (``mu_prox=0.1``, what
+    ``straggler-prox``'s ``cwfl_prox`` sets) under ``straggler-prox`` with
+    ``cfg.strategy`` ``cwfl`` — now runs, warns as JAX warns, and matches
+    JAX's run on JAX's draws."""
+    from repro.sim.scenarios import get_scenario as jax_get_scenario
+    from test_torch_scenarios import JaxScenarioDraws
+
+    topo, xs, ys, xte, yte = workload
+    jcfg = JaxFLConfig(rounds=1, snr_db=40.0, eval_samples=EVAL, seed=0,
+                       mu_prox=0.1)
+    jinit, japply = jsmall.make_mnist_mlp(hidden=(32,))
+    jscen = jax_get_scenario("straggler-prox")
+    with pytest.warns(UserWarning, match="cwfl_prox"):
+        ref = jax_run_federated(
+            jinit, japply, lambda p, x, y: jsmall.nll_loss(japply(p, x), y),
+            topo, xs, ys, xte, yte, jcfg, scenario=jscen)
     init, apply, loss, ttop, data = _torch_side(workload)
-    with pytest.raises(NotImplementedError, match="mu_prox"):
-        run_federated(init, apply, loss, ttop, *data,
-                      FLConfig(rounds=1, eval_samples=EVAL, mu_prox=0.1),
-                      scenario="straggler-prox", device="cpu")
+    n_k = xs.shape[1]
+    with pytest.warns(UserWarning, match="cwfl_prox"):
+        got = run_federated(
+            init, apply, loss, ttop, *data,
+            FLConfig(rounds=1, eval_samples=EVAL, mu_prox=0.1),
+            scenario="straggler-prox", device="cpu",
+            draws=JaxScenarioDraws(jinit, jcfg, n_k, n_k // 64, jscen))
+    np.testing.assert_allclose(got["train_loss"], ref["train_loss"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(got["test_acc"], ref["test_acc"], rtol=0,
+                               atol=2 / EVAL)
+    for a, b in zip(tree_leaves(got["final_params"]),
+                    jax.tree.leaves(ref["final_params"])):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=0)
+    assert min(got["scenario"]["mask_mass"]) < K
 
 
 def test_run_federated_turns_tf32_off_for_the_run_only(workload):
