@@ -18,8 +18,9 @@ Phases, each printed as one JSON object per line:
    on signals with NaN and ±inf and a dead Ã row; ``ota_aggregate`` (the
    phase-1 OTA MAC) at the paper's MNIST width in f32 and bf16, at the
    shapes the baselines' syncs give it (FedAvg and COTAF: one row of
-   weights, C=1; decentralized: C=K=50 rows, four launches of 16), JAX's
-   ragged shape, and the shapes that take its other routes, its output
+   weights, C=1; decentralized: C=K=50 rows), C=K=128 near the f32
+   crossover of bytes and operations, JAX's ragged shape, and the shapes
+   that take its other plans, each in one launch (counted), its output
    poisoned with NaN before each launch, with ``torch.addmm`` as its
    library yardstick; ``flash_attention`` (f32: the 3×TF32 wgmma + TMA
    kernel of ``flash_attention.cu``, its bound both on the tensor cores
@@ -59,8 +60,8 @@ Phases, each printed as one JSON object per line:
    the test accuracy held to floors derived from the JAX package's runs;
 7a. strategies — the same width with ``fedavg``, ``cotaf``,
    ``decentralized``, ``cwfl_prox`` and ``cotaf_prox``: the baselines'
-   syncs through ``ota_aggregate`` (once a FedAvg or COTAF round, four
-   times a decentralized one), the prox variants' local objective, the
+   syncs through ``ota_aggregate`` (once a round, decentralized included),
+   the prox variants' local objective, the
    round-5 accuracy held to floors from the JAX package's runs at the same
    width (``scripts/jax_strategy_reference.py``);
 7b. quickstart — ``examples/quickstart_torch.main()`` on the card end to
@@ -270,20 +271,33 @@ def kernel_phase(kmod, ref_fn, guard: bool = False):
 # (K=50 clients, C=3 clusters, d=184,214) in f32 and in bf16 (weights and
 # noise in the signals' dtype, as JAX's tests pass them), at the shapes the
 # baselines' syncs give it at that width (FedAvg and COTAF: one row of
-# weights; decentralized: K=50 rows, four launches), JAX's ragged shape
-# with f32 and with bf16 signals (f32 noise: the mixed instantiation), and
-# two shapes that take the wrapper's other routes: more clusters than one
-# launch holds (two launches) and weights beyond 48 KiB of shared memory.
+# weights; decentralized: K=50 rows), at C=K=128 (near the f32 crossover
+# of bytes and operations: two passes of 64 rows over a resident tile),
+# JAX's ragged shape with f32 and with bf16 signals (f32 noise: the mixed
+# instantiation), and the shapes that take the kernel's other plans: 20
+# rows on the ring in blocks of 4, with misaligned rows (d odd) and with
+# every row on a 16-byte boundary (nothing to realign), K=1,000 streamed
+# through shared memory in chunks, 256 rows in passes (with K=50, and with
+# K=1,000 in bf16), decentralized consensus past 256 clients, FedAvg with
+# 2,000 clients, and the column path with 224 KB of weights in shared
+# memory.  Every shape is one launch.
 OTA_SHAPES = (
     # label, K, C, d, signals dtype, weights and noise dtype
     ("main", 50, 3, 184214, torch.float32, torch.float32),
     ("main_bf16", 50, 3, 184214, torch.bfloat16, torch.bfloat16),
     ("fedavg_cotaf", 50, 1, 184214, torch.float32, torch.float32),
     ("decentralized", 50, 50, 184214, torch.float32, torch.float32),
+    ("decentralized_k128", 128, 128, 184214, torch.float32, torch.float32),
     ("ragged", 16, 4, 2049, torch.float32, torch.float32),
     ("ragged_bf16_f32noise", 16, 4, 2049, torch.bfloat16, torch.float32),
     ("many_clusters", 40, 20, 3001, torch.float32, torch.float32),
+    ("aligned_rows", 40, 20, 4096, torch.float32, torch.float32),
     ("wide_k", 1000, 16, 777, torch.float32, torch.float32),
+    ("most_rows", 50, 256, 1001, torch.float32, torch.float32),
+    ("rows_256_k1000_bf16", 1000, 256, 515, torch.bfloat16, torch.float32),
+    ("decentralized_k300", 300, 300, 1001, torch.float32, torch.float32),
+    ("fedavg_k2000", 2000, 1, 3001, torch.bfloat16, torch.float32),
+    ("column_wide_w", 7000, 8, 1500, torch.float32, torch.float32),
 )
 # The JAX package's tolerances for this kernel (tests/test_kernels.py),
 # absolute and relative: f32 sums in another order; bf16 outputs.
@@ -312,6 +326,32 @@ def poisoned_launch(fn, out_shape, dtype):
 OTA_ROWS = (("main", "ota_aggregate"),
             ("fedavg_cotaf", "ota_aggregate[C=1]"),
             ("decentralized", "ota_aggregate[C=50]"))
+# The shapes that are timed.
+OTA_TIMED = ("main", "main_bf16", "fedavg_cotaf", "decentralized",
+             "decentralized_k128", "ragged")
+
+
+def ota_inputs(K, C, d, dtype, wdtype):
+    """Signals, row-stochastic weights and small noise, from a seed of
+    the shape."""
+    g = torch.Generator(DEVICE).manual_seed(K + C + d)
+    s = torch.randn(K, d, generator=g, device=DEVICE).to(dtype)
+    w = torch.rand(C, K, generator=g, device=DEVICE)
+    w = (w / w.sum(1, keepdim=True)).to(wdtype)
+    n = (1e-2 * torch.randn(C, d, generator=g, device=DEVICE)).to(wdtype)
+    return s, w, n
+
+
+def ota_bounds(s, n, C):
+    """(bytes, flops, bound ms by bytes, by operations): read S and N
+    once, write y once (W is O(C·K)); 2·C·K + C f32 operations a column on
+    the CUDA cores."""
+    bw, peak_f32, *_ = card_peaks(torch.cuda.get_device_name(0))
+    K, d = s.shape
+    nbytes = (s.numel() * s.element_size() + n.numel() * n.element_size()
+              + C * d * s.element_size() + 4 * C * K)
+    flops = d * (2 * C * K + C)
+    return nbytes, flops, nbytes / bw * 1e3, flops / peak_f32 * 1e3
 
 
 def ota_kernel_phase(omod, ref_fn):
@@ -319,18 +359,15 @@ def ota_kernel_phase(omod, ref_fn):
     ``torch.addmm(N, W, S)`` — one cuBLAS call computing the same function
     (TF32 off) — beside it; returns the rows of the kernels summary for
     OTA_ROWS (without their launch counts)."""
-    bw, peak_f32, *_ = card_peaks(torch.cuda.get_device_name(0))
     rows = {}
     for label, K, C, d, dtype, wdtype in OTA_SHAPES:
-        g = torch.Generator(DEVICE).manual_seed(K + C + d)
-        s = torch.randn(K, d, generator=g, device=DEVICE).to(dtype)
-        w = torch.rand(C, K, generator=g, device=DEVICE)
-        w = (w / w.sum(1, keepdim=True)).to(wdtype)
-        n = (1e-2 * torch.randn(C, d, generator=g, device=DEVICE)).to(wdtype)
+        s, w, n = ota_inputs(K, C, d, dtype, wdtype)
         ref = ref_fn(s, w, n)
+        before = omod.launches
         out = poisoned_launch(lambda: omod.ota_aggregate(s, w, n), (C, d),
                               dtype)
         torch.cuda.synchronize()
+        a_call = omod.launches - before
         tol = OTA_TOL[dtype]
         diff = (out.float() - ref.float()).abs()
         err = float(diff.max())
@@ -338,23 +375,11 @@ def ota_kernel_phase(omod, ref_fn):
         line = {"phase": "kernel", "kernel": "ota_aggregate", "shape": label,
                 "K": K, "C": C, "d": d, "dtype": str(dtype),
                 "weights_noise_dtype": str(wdtype),
-                "launches_a_call": -(-C // omod.MAX_CLUSTERS),
+                "launches_a_call": a_call,
                 "max_abs_err": err, "tol_abs_and_rel": tol,
                 "finite": bool(torch.isfinite(out.float()).all())}
-        if label in ("main", "main_bf16", "fedavg_cotaf", "decentralized",
-                     "ragged"):
-            # The least work: read S and N once, write y once (W is
-            # O(C·K)); 2·C·K + C f32 operations a column on the CUDA cores.
-            nbytes = (s.numel() * s.element_size()
-                      + n.numel() * n.element_size()
-                      + C * d * s.element_size() + 4 * C * K)
-            flops = d * (2 * C * K + C)
-            bound_bytes, bound_ops = nbytes / bw * 1e3, flops / peak_f32 * 1e3
-            groups = -(-C // omod.MAX_CLUSTERS)
-            # The kernel's own design reads S once a launch.
-            line["bound_ms_bytes_s_once_a_launch"] = (
-                nbytes + (groups - 1) * s.numel() * s.element_size()
-            ) / bw * 1e3
+        if label in OTA_TIMED:
+            nbytes, flops, bound_bytes, bound_ops = ota_bounds(s, n, C)
             ms = time_cold(lambda: omod.ota_aggregate(s, w, n))
             plain_ms = time_cold(lambda: ref_fn(s, w, n))
             wl = w.to(dtype)
@@ -374,6 +399,9 @@ def ota_kernel_phase(omod, ref_fn):
         if not (ok and line["finite"]):
             raise AssertionError(f"ota_aggregate disagrees with its plain "
                                  f"version at {label}: {line}")
+        if a_call != 1:
+            raise AssertionError(f"ota_aggregate made {a_call} launches at "
+                                 f"{label}, expected 1")
         if line.get("library_max_abs_err", 0.0) > tol:
             raise AssertionError(f"the library yardstick computes another "
                                  f"function at {label}: {line}")
@@ -845,8 +873,8 @@ def scenario_phase(kmod, static_acc, rounds: int = 5):
 
 
 # The other strategies at full width (static): ota_aggregate launches a
-# round (FedAvg and COTAF one row of weights, decentralized K=50 rows in
-# groups of 16) and cwfl_round launches a round, and the least round-5 test
+# round (FedAvg and COTAF one row of weights, decentralized K=50 rows, one
+# launch each) and cwfl_round launches a round, and the least round-5 test
 # accuracy.  The floors come from the JAX package at this configuration on
 # the CPU (scripts/jax_strategy_reference.py --seed S, S = 0, 3, 6, 9): the
 # lowest round-5 accuracy of the strategy over the four seeds, less 0.02,
@@ -855,7 +883,7 @@ STRATEGY_RUNS = (
     # strategy, ota_aggregate launches a round, cwfl_round's, floor
     ("fedavg", 1, 0, 0.88),          # JAX: 0.910-0.989
     ("cotaf", 1, 0, 0.89),           # 0.919-0.990
-    ("decentralized", 4, 0, 0.88),   # 0.910-0.989
+    ("decentralized", 1, 0, 0.88),   # 0.910-0.989
     ("cwfl_prox", 0, 1, 0.87),       # 0.900-0.992
     ("cotaf_prox", 1, 0, 0.89),      # 0.919-0.989
 )

@@ -16,10 +16,11 @@ FedProx is a change of the local objective, not of the sync
 ``cotaf_prox`` are registered strategies (`repro_torch.strategies`).
 
 Every sync here is one product y = W·S + N on the flat ``(K, d)`` matrix
-of the K-stacked parameters, run by the ``ota_aggregate`` kernel
-(`repro_torch.kernels.ota_aggregate`): one row of W for FedAvg and COTAF,
-K rows for decentralized.  The noise comes in as unit normals in the flat
-leaf order, scaled here by each row's receiver std — JAX draws
+of the K-stacked parameters, one launch of the ``ota_aggregate`` kernel
+(`repro_torch.kernels.ota_aggregate`), which reads S once for all rows of
+W: one row for FedAvg and COTAF, K rows for decentralized.  The noise
+comes in as unit normals in the flat leaf order, scaled here by each
+row's receiver std — JAX draws
 ``std[:, None] * normal(key, ...)`` per leaf, so unit normals passed in
 reproduce its noise exactly.
 """
@@ -40,10 +41,10 @@ from repro_torch.utils.pytree import tree_flatten
 
 def _mix(stacked_params, weights: torch.Tensor, noise: torch.Tensor):
     """y = weights·S + noise on the flat (K, d) matrix S of
-    ``stacked_params``, through the kernel.  One row of weights: every
-    client gets y's row, which is the consensus.  K rows: client k gets
-    row k, and the consensus is the mean of the rows in f32.  Returns
-    ``(new_stacked, consensus)``."""
+    ``stacked_params``, in one launch of the kernel whatever the number of
+    rows.  One row of weights: every client gets y's row, which is the
+    consensus.  K rows: client k gets row k, and the consensus is the mean
+    of the rows in f32.  Returns ``(new_stacked, consensus)``."""
     leaves, treedef = tree_flatten(stacked_params)
     K = leaves[0].shape[0]
     y = ota_aggregate(_flat_pack(leaves, K), weights, noise)

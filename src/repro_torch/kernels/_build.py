@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exports a plain C interface and is compiled for
 Hopper (``sm_90a``) at first use into ``build/torch_kernels/`` at the root
-of the checkout.  The library's name carries a hash of the source and the
-flags, so an edited source is rebuilt.  Nothing here runs at import time:
+of the checkout.  The library's name carries a hash of the source, the
+headers it includes from its own directory and the flags, so an edited
+source or header is rebuilt.  Nothing here runs at import time:
 the CPU has no ``nvcc``, and the CPU route never builds.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,8 +34,12 @@ def _nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     """Where ``source``'s library lives: ``<stem>-<hash>.so``."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = source.read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, flags=re.M)
+    digest = hashlib.sha256(
+        text + b"".join(source.with_name(h.decode()).read_bytes()
+                        for h in headers)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 

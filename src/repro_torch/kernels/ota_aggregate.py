@@ -17,13 +17,16 @@ from one to the other.
 The JAX entry's ``tile`` (the d-tile of its Pallas grid) and ``interpret``
 (the Pallas interpreter off the TPU) are TPU choices and are dropped, as is
 the JAX flat route's ``use_pallas``/``PALLAS_MIN_DIM`` cut: on the card the
-kernel runs at every d.  The kernel reads S once for up to
-``MAX_CLUSTERS`` clusters; more clusters run in groups of that many, one
-launch (and one read of S) a group.
+kernel runs at every d.  One launch computes all C rows and reads S once
+for them (where the K x tile block of S fits in shared memory beside W;
+else once for each pass of rows), at any C and K with C·K < 2^31: the
+kernel's ``ota::make_plan`` (``csrc/ota_plan.h``) picks the path and the
+layout, and :func:`launch_plan` reads it back.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -33,14 +36,70 @@ from repro_torch.kernels._build import load_library
 from repro_torch.kernels.ref import ota_aggregate_ref
 
 SOURCE = Path(__file__).with_name("csrc") / "ota_aggregate.cu"
-# The kernel keeps the C sums of its columns in registers, templated on C.
-MAX_CLUSTERS = 16
-# W (C·K floats of a group) is staged in shared memory; a block may opt in
-# to this much of it on Hopper.
-MAX_SHARED_BYTES = 232448
+#: The launch plan, included by SOURCE: plain C++ that the host's compiler
+#: also builds alone (the CPU tests do).
+PLAN_HEADER = SOURCE.with_name("ota_plan.h")
 
 #: Kernel launches so far: raised by one per launch, and nowhere else.
 launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch covers (C, K, d), as the kernel's ``ota::make_plan``
+    decides it."""
+    ring: bool          # the ring; else the column path
+    warps: int          # a block's warps
+    tile: int           # columns of a block's tile
+    rows: int           # R, rows of W a warp takes (the column path: C)
+    k_chunk: int        # rows of S a stage holds; 0: all K, S resident
+    blocks_per_sm: int  # the ring's persistent blocks an SM (0: none)
+    tiles: int          # ceil(d / tile)
+    grid: int           # blocks
+    smem_bytes: int
+    passes: int         # passes over C's rows, each streaming S once
+
+
+def read_plan(lib, K: int, C: int, d: int, dtype: torch.dtype,
+              noise_dtype: torch.dtype, num_sms: int):
+    """The plan for W (C, K) against S (K, d) of ``dtype`` and N of
+    ``noise_dtype`` on a card of ``num_sms`` SMs, from ``lib``'s
+    ``ota_aggregate_plan`` (the kernel's library, or the plan header built
+    alone); None when the shape lies beyond one launch."""
+    fn = lib.ota_aggregate_plan
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 10)()
+    if fn(K, C, d, dtype.itemsize, noise_dtype.itemsize, num_sms, out):
+        return None
+    return LaunchPlan(bool(out[0]), *out[1:])
+
+
+def launch_plan(K: int, C: int, d: int, dtype: torch.dtype,
+                noise_dtype: torch.dtype, device=None):
+    """The kernel's plan on ``device`` (a CUDA device; builds the kernel)."""
+    index = torch.device(device if device is not None else "cuda").index
+    return read_plan(_library(), K, C, d, dtype, noise_dtype,
+                     _num_sms(torch.cuda.current_device()
+                              if index is None else index))
+
+
+def launch_error(err: int, K: int, C: int, d: int) -> Exception:
+    """The exception for the kernel's status ``err``: -1 is a shape beyond
+    one launch (``ota::make_plan``), anything else a CUDA error."""
+    if err == -1:
+        return ValueError(
+            f"ota_aggregate takes C·K < 2^31 weights and a grid of fewer "
+            f"than 2^31 tiles and items a block in one launch, got K={K}, "
+            f"C={C}, d={d}")
+    return RuntimeError(f"ota_aggregate kernel launch failed: CUDA error "
+                        f"{err} (K={K}, C={C}, d={d})")
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -48,7 +107,9 @@ def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     for fn in (lib.ota_aggregate_f32, lib.ota_aggregate_bf16,
                lib.ota_aggregate_bf16_bf16noise):
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        # s, w, w_bf16, n, out, K, C, d, stream
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -85,7 +146,8 @@ def ota_aggregate(signals: torch.Tensor, weights: torch.Tensor,
     """y = weights @ signals + noise, fused, with f32 sums.
 
     signals: (K, d) f32 or bf16; weights: (C, K), any float type (used as
-    f32); noise: (C, d), f32 or the signals' dtype.  Returns (C, d) in the
+    f32; f32 and bf16 go to the kernel as they are); noise: (C, d), f32 or
+    the signals' dtype.  Returns (C, d) in the
     signals' dtype.
     """
     global launches
@@ -95,19 +157,15 @@ def ota_aggregate(signals: torch.Tensor, weights: torch.Tensor,
     if signals.device.type != "cuda":
         raise ValueError(f"ota_aggregate runs on CUDA or the CPU, not "
                          f"{signals.device}")
-    K, d = signals.shape
-    C = weights.shape[0]
-    group = min(C, MAX_CLUSTERS)
-    if 4 * group * K > MAX_SHARED_BYTES:
-        raise ValueError(f"K={K} clients, {group} clusters a launch: the "
-                         f"weights exceed {MAX_SHARED_BYTES} bytes of shared "
-                         f"memory (K <= {MAX_SHARED_BYTES // (4 * group)})")
     for name, x in (("signals", signals), ("noise", noise)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    # The weights are O(C·K): cast and pack them here, as the JAX kernel
-    # casts its weight block.
-    w = weights.to(torch.float32).contiguous()
+    K, d = signals.shape
+    C = weights.shape[0]
+    # The kernel widens bf16 weights to f32 as it stages them, as the JAX
+    # kernel casts its weight block; other dtypes (O(C·K)) are cast here.
+    w_bf16 = weights.dtype == torch.bfloat16
+    w = (weights if w_bf16 else weights.to(torch.float32)).contiguous()
     out = torch.empty((C, d), dtype=signals.dtype, device=signals.device)
     lib = _library()
     fn = (lib.ota_aggregate_f32 if signals.dtype == torch.float32 else
@@ -115,14 +173,9 @@ def ota_aggregate(signals: torch.Tensor, weights: torch.Tensor,
           lib.ota_aggregate_bf16_bf16noise)
     with torch.cuda.device(signals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for c0 in range(0, C, MAX_CLUSTERS):
-            g = min(MAX_CLUSTERS, C - c0)
-            err = fn(signals.data_ptr(), w[c0].data_ptr(),
-                     noise[c0].data_ptr(), out[c0].data_ptr(), K, g, d,
-                     stream)
-            if err != 0:
-                raise RuntimeError(f"ota_aggregate kernel launch failed: "
-                                   f"CUDA error {err} (K={K}, clusters "
-                                   f"{c0}..{c0 + g - 1}, d={d})")
-            launches += 1
+        err = fn(signals.data_ptr(), w.data_ptr(), int(w_bf16),
+                 noise.data_ptr(), out.data_ptr(), K, C, d, stream)
+    if err != 0:
+        raise launch_error(err, K, C, d)
+    launches += 1
     return out
