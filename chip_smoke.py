@@ -14,11 +14,13 @@ Phases, each printed as one JSON object per line:
 3. kernel — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the main paths and a few ragged ones, with its time, the
    plain version's time and the least time the card could take (its bound):
-   ``cwfl_round`` and its guarded variant ``cwfl_round_guard``, the latter
-   on signals with NaN and ±inf and a dead Ã row; ``ota_aggregate`` (the
-   phase-1 OTA MAC) at the paper's MNIST width in f32 and bf16, at the
-   shapes the baselines' syncs give it (FedAvg and COTAF: one row of
-   weights, C=1; decentralized: C=K=50 rows), C=K=128 near the f32
+   ``cwfl_round`` (at the paper's MNIST width, at the CIFAR CNN's — K=27,
+   d=698,250 — and at MNIST CWFL-4's C=4) and its guarded variant
+   ``cwfl_round_guard``, the latter on signals with NaN and ±inf and a
+   dead Ã row; ``ota_aggregate`` (the phase-1 OTA MAC) at the paper's
+   MNIST width in f32 and bf16, at the shapes the baselines' syncs give
+   it (FedAvg and COTAF: one row of weights, C=1, also at the CIFAR CNN's
+   width; decentralized: C=K=50 rows), C=K=128 near the f32
    crossover of bytes and operations, JAX's ragged shape, and the shapes
    that take its other plans, each in one launch (counted), its output
    poisoned with NaN before each launch, with ``torch.addmm`` as its
@@ -38,9 +40,10 @@ Phases, each printed as one JSON object per line:
    with the same draws: the static slice, ``flaky-clients``, a
    dead-cluster run whose faults kill whole clusters, each other strategy
    (``fedavg``, ``cotaf``, ``decentralized``, ``cwfl_prox``,
-   ``cotaf_prox``) static and COTAF under ``flaky-clients``, and greedy
-   decoding of the reduced Gemma-2 (its local window cut to 8) with the
-   same weights;
+   ``cotaf_prox``) static and COTAF under ``flaky-clients``, the CIFAR
+   CNN at 8×8×3 on a non-IID split (``cwfl``, and ``cotaf`` with
+   µ_p = 0.1), and greedy decoding of the reduced Gemma-2 (its local
+   window cut to 8) with the same weights;
 5. slice — ``run_federated`` with CWFL on the static scenario at the full
    width of the paper's MNIST model (K=50 clients, C=3 clusters, the
    784-200-100-64-10 MLP, d=184,214) for a few rounds, with every kernel's
@@ -69,6 +72,12 @@ Phases, each printed as one JSON object per line:
    accuracies held to floors from the JAX package's and the port's runs
    over 16 seeds, then its ``run`` on inputs made on the CPU against the
    same run on the CPU;
+7c. paper — the CIFAR column of Table I (COTAF, COTAF-Prox, CWFL-3,
+   CWFL-3-Prox: K=27, the CNN, d=698,250, non-IID) and MNIST CWFL-4 (K=50,
+   C=4) through ``repro_torch.paper.common.run_setting`` at the paper's
+   full scale, 3 rounds each: steady rounds/s, each kernel's launches,
+   peak memory, and the round-3 accuracy against floors from the JAX
+   package's runs (``scripts/jax_paper_reference.py``);
 8. serve — ``greedy_decode`` of Gemma-2 9B at its published width (f32,
    random weights drawn on the card): 2 requests of 4,608-token prompts,
    16 greedy tokens; prefill seconds, decode tokens/s, the kernel's
@@ -83,8 +92,10 @@ Phases, each printed as one JSON object per line:
    last logits no further from the f32 model's than SERVE_BF16_GATE
    times the plain version's;
 10. profile — under ``torch.profiler``, the static slice and
-   ``head-failure``, the window on the rounds after the first; device
-   time by kernel, launches and the device's idle share.
+   ``head-failure``, the window on the rounds after the first, and one
+   CIFAR CWFL-3 round at full width; device time by kernel (for CIFAR
+   also by kind: grouped convolutions forward and backward, gemms, the
+   round kernel), launches and the device's idle share.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -113,7 +124,15 @@ F32_ATOL = 1e-5          # f32 sums in another order than cuBLAS's
 BF16_ULP_REL = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
 
 
+# The card's name and power limit (``nvidia-smi``), set by ``main``.
+CARD = []
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the card's name and power
+    limit beside its numbers."""
+    if "phase" in obj and CARD:
+        obj = {**obj, "card": CARD[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -200,17 +219,33 @@ def poison(args, seed: int):
     return s, a, n1, b, n2, m
 
 
+# cwfl_round at the shapes the main paths give it: the paper's MNIST width
+# (K=50, C=3, d=184,214), the CIFAR CNN's (K=27, C=3, d=698,250, ≡ 2 mod
+# 4: every other f32 row 8 bytes off a 16-byte boundary) and MNIST CWFL-4
+# (C=4); a ragged and a tiny shape, and bf16 signals.  The rows of the
+# kernels summary: the shape label and the row's name (the guarded
+# variant's: its MNIST row only, the fault scenarios' shape).
+CWFL_SHAPES = (
+    # label, K, C, d, signals dtype
+    ("main", 50, 3, 184214, torch.float32),
+    ("cifar", 27, 3, 698250, torch.float32),
+    ("mnist_c4", 50, 4, 184214, torch.float32),
+    ("ragged", 16, 4, 2049, torch.float32),
+    ("tiny", 1, 1, 700, torch.float32),
+    ("main_bf16", 50, 3, 184214, torch.bfloat16),
+)
+CWFL_ROWS = (("main", ""), ("cifar", "[cifar]"), ("mnist_c4", "[C=4]"))
+
+
 def kernel_phase(kmod, ref_fn, guard: bool = False):
     """cwfl_round (or its guarded variant, on poisoned inputs) against its
-    plain version; returns the main-shape row of the kernels summary
-    (without its launch count)."""
+    plain version at CWFL_SHAPES; returns the rows of the kernels summary
+    (without their launch counts) for CWFL_ROWS, the guarded variant's
+    for its main shape."""
     name = "cwfl_round_guard" if guard else "cwfl_round"
-    shapes = [("main", 50, 3, 184214, torch.float32),
-              ("ragged", 16, 4, 2049, torch.float32),
-              ("tiny", 1, 1, 700, torch.float32),
-              ("main_bf16", 50, 3, 184214, torch.bfloat16)]
-    row = None
-    for label, K, C, d, dtype in shapes:
+    timed = dict(CWFL_ROWS[:1] if guard else CWFL_ROWS)
+    rows = []
+    for label, K, C, d, dtype in CWFL_SHAPES:
         args = round_inputs(K, C, d, dtype, seed=K + C + d)
         if guard:
             args = poison(args, seed=K + C + d)
@@ -236,42 +271,51 @@ def kernel_phase(kmod, ref_fn, guard: bool = False):
                 "max_abs_err_new": err_new, "tol_new": tol_new,
                 "max_abs_err_cons": err_cons, "tol_cons": F32_ATOL,
                 "finite": finite}
-        if label == "main":
+        if label in timed:
             bw, peak, *_ = card_peaks(torch.cuda.get_device_name(0))
             nbytes = (kmod.hbm_bytes_model(K, C, d)["fused_bytes"]
                       + 4 * (2 * C * K + C * C))
             flops = d * (2 * C * K + 2 * C * C + 2 * K * C + 3 * C)
             bound_bytes, bound_ops = nbytes / bw * 1e3, flops / peak * 1e3
-            ms = time_cold(lambda: kmod.cwfl_round(*args, guard=guard))
-            plain_ms = time_cold(lambda: ref_fn(*args, guard=guard))
+            launch = lambda: kmod.cwfl_round(*args, guard=guard)  # noqa: E731
+            plain = lambda: ref_fn(*args, guard=guard)            # noqa: E731
+            ms = time_cold(launch)
+            plain_ms = time_cold(plain)
             line.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
                         bound_ms_bytes=bound_bytes,
                         bound_ms_operations=bound_ops,
-                        achieved_bytes_per_s=nbytes / (ms * 1e-3))
-            row = {"name": name, "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/cwfl_round.cu",
-                   "replaces": ("src/repro/kernels/cwfl_round.py:124"
-                                if guard else
-                                "src/repro/kernels/cwfl_round.py:42"),
-                   "launches": None,
-                   "max_abs_err": max(err_new, err_cons),
-                   "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(bound_bytes, bound_ops),
-                   "bound_by": ("bytes" if bound_bytes >= bound_ops
-                                else "operations"),
-                   "library_ms": None}
+                        achieved_bytes_per_s=nbytes / (ms * 1e-3),
+                        device_ms=device_ms(launch),
+                        plain_device_ms=device_ms(plain))
+            rows.append({"name": name + timed[label], "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "cwfl_round.cu",
+                         "replaces": ("src/repro/kernels/cwfl_round.py:124"
+                                      if guard else
+                                      "src/repro/kernels/cwfl_round.py:42"),
+                         "launches": None,
+                         "max_abs_err": max(err_new, err_cons),
+                         "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": max(bound_bytes, bound_ops),
+                         "bound_by": ("bytes" if bound_bytes >= bound_ops
+                                      else "operations"),
+                         "library_ms": None,
+                         "device_ms": line["device_ms"],
+                         "plain_device_ms": line["plain_device_ms"],
+                         "shape": {"K": K, "C": C, "d": d}})
         emit(line)
         if not (ok_new and err_cons <= F32_ATOL and (finite or not guard)):
             raise AssertionError(f"{name} disagrees with its plain "
                                  f"version at {label}: {line}")
-    return row
+    return rows
 
 
 # ota_aggregate at the shape phase 1 gives it at the paper's MNIST width
 # (K=50 clients, C=3 clusters, d=184,214) in f32 and in bf16 (weights and
 # noise in the signals' dtype, as JAX's tests pass them), at the shapes the
 # baselines' syncs give it at that width (FedAvg and COTAF: one row of
-# weights; decentralized: K=50 rows), at C=K=128 (near the f32 crossover
+# weights; decentralized: K=50 rows), at COTAF's shape at the CIFAR CNN's
+# width (K=27, d=698,250), at C=K=128 (near the f32 crossover
 # of bytes and operations: two passes of 64 rows over a resident tile),
 # JAX's ragged shape with f32 and with bf16 signals (f32 noise: the mixed
 # instantiation), and the shapes that take the kernel's other plans: 20
@@ -286,6 +330,7 @@ OTA_SHAPES = (
     ("main", 50, 3, 184214, torch.float32, torch.float32),
     ("main_bf16", 50, 3, 184214, torch.bfloat16, torch.bfloat16),
     ("fedavg_cotaf", 50, 1, 184214, torch.float32, torch.float32),
+    ("cotaf_cifar", 27, 1, 698250, torch.float32, torch.float32),
     ("decentralized", 50, 50, 184214, torch.float32, torch.float32),
     ("decentralized_k128", 128, 128, 184214, torch.float32, torch.float32),
     ("ragged", 16, 4, 2049, torch.float32, torch.float32),
@@ -325,10 +370,11 @@ def poisoned_launch(fn, out_shape, dtype):
 # The rows of the kernels summary: the shape, and the row's name.
 OTA_ROWS = (("main", "ota_aggregate"),
             ("fedavg_cotaf", "ota_aggregate[C=1]"),
-            ("decentralized", "ota_aggregate[C=50]"))
+            ("decentralized", "ota_aggregate[C=50]"),
+            ("cotaf_cifar", "ota_aggregate[cifar C=1]"))
 # The shapes that are timed.
-OTA_TIMED = ("main", "main_bf16", "fedavg_cotaf", "decentralized",
-             "decentralized_k128", "ragged")
+OTA_TIMED = ("main", "main_bf16", "fedavg_cotaf", "cotaf_cifar",
+             "decentralized", "decentralized_k128", "ragged")
 
 
 def ota_inputs(K, C, d, dtype, wdtype):
@@ -391,6 +437,7 @@ def ota_kernel_phase(omod, ref_fn):
                         achieved_bytes_per_s=nbytes / (ms * 1e-3),
                         device_ms=device_ms(
                             lambda: omod.ota_aggregate(s, w, n)),
+                        plain_device_ms=device_ms(lambda: ref_fn(s, w, n)),
                         library="torch.addmm", library_max_abs_err=lib_err,
                         library_ms=time_cold(lib),
                         library_device_ms=device_ms(lib))
@@ -420,6 +467,7 @@ def ota_kernel_phase(omod, ref_fn):
                          >= line["bound_ms_operations"] else "operations"),
             "library_ms": line["library_ms"], "library": "torch.addmm",
             "device_ms": line["device_ms"],
+            "plain_device_ms": line["plain_device_ms"],
             "library_device_ms": line["library_device_ms"],
             "shape": {"K": line["K"], "C": line["C"], "d": line["d"]}})
     bf16 = rows["main_bf16"]
@@ -1037,6 +1085,215 @@ def quickstart_phase(omod, kmod):
                                  f"disagrees with the CPU: {line}")
 
 
+def cnn_reference_phase(strategy: str, mu_prox: float = 0.0,
+                        rounds: int = 2) -> None:
+    """The CIFAR CNN at 8×8×3 on the card against the same run on the
+    CPU, with the same draws (made on the CPU), data and topology: K=4,
+    C=3, a non-IID split (2 of 40 shards a client, 2 steps of 16 a
+    round), under the reference phase's gates.  The card's run goes
+    through the grouped convolutions of the stacked path and the round
+    kernels."""
+    from repro_torch.core import TopologyConfig, make_topology
+    from repro_torch.data import (SyntheticImageConfig,
+                                  make_synthetic_images, partition_noniid)
+    from repro_torch.models import make_cifar_cnn, nll_loss
+    from repro_torch.sim import TorchDraws
+    from repro_torch.training import FLConfig, run_federated
+    from repro_torch.utils import tree_leaves
+
+    K, hw = 4, (8, 8, 3)
+    topo = make_topology(7, TopologyConfig(num_clients=K), device="cpu")
+    (xtr, ytr), (xte, yte) = make_synthetic_images(
+        0, SyntheticImageConfig("cifar-like", *hw, 10, 640, 256),
+        device="cpu")
+    xs, ys = partition_noniid(1, xtr, ytr, K, 2, num_shards=40)
+    init, apply = make_cifar_cnn(hw)
+    loss = lambda p, x, y: nll_loss(apply(p, x), y)   # noqa: E731
+    cfg = FLConfig(strategy=strategy, rounds=rounds, batch_size=16,
+                   mu_prox=mu_prox, eval_samples=256, lr=0.01)
+    runs = {dev: run_federated(
+        init, apply, loss, topo.to(dev), xs.to(dev), ys.to(dev), xte.to(dev),
+        yte.to(dev), cfg, draws=TorchDraws(0, "cpu"), device=dev)
+        for dev in (DEVICE, "cpu")}
+    gpu, cpu = runs[DEVICE], runs["cpu"]
+    loss_rel = max(abs(a / b - 1) for a, b in zip(gpu["train_loss"],
+                                                   cpu["train_loss"]))
+    param_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(gpu["final_params"]), tree_leaves(cpu["final_params"])))
+    acc_err = max(abs(a - b) for a, b in zip(gpu["test_acc"],
+                                            cpu["test_acc"]))
+    line = {"phase": "reference", "run": f"cnn-{strategy}",
+            "strategy": strategy, "mu_prox": mu_prox, "input_hw": hw,
+            "K": K, "noniid_shards": 40, "rounds": rounds,
+            "train_loss_cuda": gpu["train_loss"],
+            "train_loss_cpu": cpu["train_loss"], "loss_rel_err": loss_rel,
+            "tol_loss_rel": 1e-4, "test_acc_cuda": gpu["test_acc"],
+            "test_acc_cpu": cpu["test_acc"], "acc_abs_err": acc_err,
+            "tol_acc_abs": 2 / 256, "param_abs_err": param_err,
+            "tol_param_abs": 1e-4}
+    emit(line)
+    if not all(math.isfinite(x) for x in gpu["train_loss"]):
+        raise AssertionError(f"non-finite train loss on the card: {line}")
+    if not (loss_rel <= 1e-4 and acc_err <= 2 / 256 and param_err <= 1e-4):
+        raise AssertionError(f"the CNN {strategy} run on the card disagrees "
+                             f"with the CPU: {line}")
+
+
+# The paper phase: Table I's CIFAR column and MNIST CWFL-4 on the paper's
+# protocol at full width (`repro_torch.paper.common.run_setting` at
+# BenchScale.full(): CIFAR K=27, 50,000/10,000 cifar-like, 7 of 189 shards
+# a client, batch 32; MNIST K=50, 60,000/10,000, 4 of 200 shards, batch
+# 64; lr 1e-3, 40 dB, eval on 4,096), cut to PAPER_ROUNDS of the paper's
+# 70.  Per row: the summary row its kernel's launches count toward, and
+# the least round-3 test accuracy.  On a non-IID split that accuracy
+# swings with the draws.  The JAX package (scripts/jax_paper_reference.py
+# --seed S): CWFL-3 0.931-1.0 and COTAF 0.989-1.0 at S = 0..5, their prox
+# twins 0.994-1.0 and 0.989-1.0 at S = 0..2, MNIST CWFL-4 0.504-0.792 at
+# S = 0..5.  The port on the card (scripts/paper_seeds.py, S = 0..5):
+# COTAF 0.936-1.0, CWFL-3 0.918-1.0, MNIST CWFL-4 0.561-0.715, each prox
+# row within 0.001 of its twin.  A floor is the lowest of the row's and
+# its twin's runs in both packages less 0.03, rounded down to 0.01.
+PAPER_ROUNDS = 3
+PAPER_RUNS = (
+    # label, dataset, strategy, clusters, µ_p, kernels-summary row, floor
+    ("cifar/COTAF", "cifar", "cotaf", 3, 0.0, "ota_aggregate[cifar C=1]",
+     0.90),
+    ("cifar/COTAF-Prox", "cifar", "cotaf", 3, 0.1,
+     "ota_aggregate[cifar C=1]", 0.90),
+    ("cifar/CWFL-3", "cifar", "cwfl", 3, 0.0, "cwfl_round[cifar]", 0.88),
+    ("cifar/CWFL-3-Prox", "cifar", "cwfl", 3, 0.1, "cwfl_round[cifar]",
+     0.88),
+    ("mnist/CWFL-4", "mnist", "cwfl", 4, 0.0, "cwfl_round[C=4]", 0.47),
+)
+
+
+def paper_phase(omod, kmod) -> dict:
+    """Each row of PAPER_RUNS through ``run_setting`` on the card: steady
+    rounds/s (rounds 2-3), the kernels' launches counted from 0 for the
+    run (one ``cwfl_round`` a CWFL round, one ``ota_aggregate`` a COTAF
+    round, none of the other), peak device memory, and the round-3
+    accuracy against its floor.  Returns the launches by kernels-summary
+    row."""
+    import dataclasses
+
+    from repro_torch.paper.common import BenchScale, run_setting
+    from repro_torch.utils import tree_size
+
+    scale = dataclasses.replace(BenchScale.full(), rounds=PAPER_ROUNDS)
+    launches_by_row = {}
+    for label, ds, strategy, C, mu, row, floor in PAPER_RUNS:
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        omod.launches = kmod.launches = kmod.launches_guard = 0
+        t0 = time.perf_counter()
+        h = run_setting(ds, False, strategy, scale, num_clusters=C,
+                        mu_prox=mu, device=DEVICE,
+                        progress=lambda *_: stamps.append(
+                            time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"ota_aggregate": omod.launches,
+                    "cwfl_round": kmod.launches,
+                    "cwfl_round_guard": kmod.launches_guard}
+        d = tree_size(h["final_params"])
+        line = {"phase": "paper", "row": label, "strategy": strategy,
+                "clusters": C, "mu_prox": mu, "d": d,
+                "rounds": PAPER_ROUNDS, "wall_s": wall,
+                "seconds_per_round": h["seconds_per_round"],
+                "steady_rounds_per_s": (PAPER_ROUNDS - 1) / (stamps[-1]
+                                                             - stamps[0]),
+                "launches": launches,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "train_loss": h["train_loss"], "test_acc": h["test_acc"],
+                "acc_floor": floor}
+        emit(line)
+        kernel = "cwfl_round" if strategy == "cwfl" else "ota_aggregate"
+        want = {"ota_aggregate": 0, "cwfl_round": 0, "cwfl_round_guard": 0,
+                kernel: PAPER_ROUNDS}
+        if launches != want:
+            raise AssertionError(f"{label}: kernel launches {launches}, "
+                                 f"expected {want} in {PAPER_ROUNDS} rounds")
+        if d != (698250 if ds == "cifar" else 184214):
+            raise AssertionError(f"{label}: flat dimension {d}")
+        if not all(math.isfinite(x) for x in h["train_loss"]):
+            raise AssertionError(f"{label}: non-finite train loss {line}")
+        if not h["test_acc"][-1] >= floor:
+            raise AssertionError(f"{label}: round-{PAPER_ROUNDS} test "
+                                 f"accuracy {h['test_acc'][-1]} < {floor}")
+        launches_by_row[row] = launches_by_row.get(row, 0) + \
+            launches[kernel]
+    return launches_by_row
+
+
+def cifar_profile_phase(rounds: int = 2) -> None:
+    """Where a CIFAR round's time goes: ``torch.profiler`` over round 2 of
+    CWFL-3 at full width (``run_setting`` on the paper's CIFAR protocol),
+    the setup and the first round outside the window; device busy (the
+    union of the kernels' intervals) and idle share, launches, and device
+    time by kind of kernel."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.paper.common import BenchScale, run_setting
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def progress(r, loss, acc):
+        torch.cuda.synchronize()
+        if r == rounds - 1:
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif r == rounds:
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+
+    scale = dataclasses.replace(BenchScale.full(), rounds=rounds)
+    run_setting("cifar", False, "cwfl", scale, device=DEVICE,
+                progress=progress)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    # Kernels may overlap (cuDNN runs a grouped convolution's groups on
+    # streams of its own): the device is busy over the union of their
+    # intervals, which their summed times overstate.
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    union_us, end = 0.0, -math.inf
+    for a, b in spans:
+        union_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    # By cuDNN's, CUTLASS's and ATen's kernel names, first match wins.
+    kinds = {"conv_forward": ("fprop", "convolve", "grouped_direct"),
+             "conv_backward_data": ("dgrad",),
+             "conv_backward_weights": ("wgrad", "Wgrad"),
+             "conv_layout": ("Transpose", "ToNhwc", "ToNchw", "SliceC",
+                             "scaleTensor"),
+             "round_kernel": ("cwfl_round_kernel",),
+             "max_pool": ("max_pool", "MaxPool"),
+             "gemm": ("gemm", "nvjet", "cutlass", "xmma")}
+    by_kind = dict.fromkeys(kinds, 0.0)
+    by_kind["other"] = 0.0
+    for name, ms, _ in rows:
+        kind = next((k for k, words in kinds.items()
+                     if any(w in name for w in words)), "other")
+        by_kind[kind] += ms
+    wall_ms = window["wall_ms"]
+    busy_ms = union_us / 1e3
+    emit({"phase": "profile", "run": "cifar/CWFL-3", "rounds_in_window": 1,
+          "wall_ms_per_round": wall_ms, "device_busy_ms_per_round": busy_ms,
+          "device_kernel_ms_sum_per_round": sum(r[1] for r in rows),
+          "device_idle_share": 1.0 - busy_ms / wall_ms,
+          "device_launches_per_round": sum(r[2] for r in rows),
+          "device_ms_by_kind": by_kind,
+          "top": [[name[:90], ms, cnt] for name, ms, cnt in rows[:15]]})
+
+
 def profile_phase(scenario: str = "paper-static", rounds: int = 6):
     """Where a round's time goes on the card: ``torch.profiler`` over
     rounds 2..``rounds`` of ``run_federated`` at full width under
@@ -1583,6 +1840,7 @@ def main() -> None:
     # The JAX reference computes in full f32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    CARD.append(smi)
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -1618,13 +1876,14 @@ def main() -> None:
           "serial_cold_seconds": serial_build_seconds(sources),
           "libraries": libraries})
 
-    cwfl_row = kernel_phase(kmod, cwfl_round_ref)
-    guard_row = kernel_phase(kmod, cwfl_round_ref, guard=True)
-    ota_row, ota_c1_row, ota_c50_row = ota_kernel_phase(omod,
-                                                        ota_aggregate_ref)
+    cwfl_row, cwfl_cifar_row, cwfl_c4_row = kernel_phase(kmod,
+                                                         cwfl_round_ref)
+    guard_row, = kernel_phase(kmod, cwfl_round_ref, guard=True)
+    ota_row, ota_c1_row, ota_c50_row, ota_cifar_row = ota_kernel_phase(
+        omod, ota_aggregate_ref)
     fa_row, fa_bf16_row = flash_kernel_phase(fa, flash_attention_ref)
     rows = [cwfl_row, guard_row, ota_row, ota_c1_row, ota_c50_row, fa_row,
-            fa_bf16_row]
+            fa_bf16_row, cwfl_cifar_row, cwfl_c4_row, ota_cifar_row]
     reference_phase("paper-static")
     reference_phase("flaky-clients", "flaky-clients")
     dead = reference_phase("dead-cluster", dead_cluster_scenario(),
@@ -1636,6 +1895,8 @@ def main() -> None:
         reference_phase(name, strategy=name)
     reference_phase("cotaf-flaky-clients", "flaky-clients",
                     strategy="cotaf")
+    cnn_reference_phase("cwfl")
+    cnn_reference_phase("cotaf", mu_prox=0.1)
     lm_reference_phase(fa)
     cwfl_row["launches"], static = slice_phase(kmod, omod)
     ota_row["launches"] = dist_phase(omod, kmod, static)
@@ -1643,6 +1904,9 @@ def main() -> None:
     ota_c1_row["launches"], ota_c50_row["launches"] = strategies_phase(
         omod, kmod)
     quickstart_phase(omod, kmod)
+    paper_launches = paper_phase(omod, kmod)
+    for row in (cwfl_cifar_row, cwfl_c4_row, ota_cifar_row):
+        row["launches"] = paper_launches[row["name"]]
     fa_row["launches"], params, batch, cfg, gate = serve_phase(fa)
     serve_profile_phase(params, batch, cfg)
     del params
@@ -1653,6 +1917,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     profile_phase()
     profile_phase("head-failure")
+    cifar_profile_phase()
 
     print(smi, flush=True)
     emit({"kernels": rows})

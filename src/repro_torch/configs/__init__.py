@@ -1,9 +1,11 @@
 """Architecture registry (port of `repro.configs`): ``get_config(name)``.
 
 Each module defines ``config: ArchConfig`` with the published dimensions,
-as the JAX package's does.  Only the configurations a path of the port
-runs are registered; asking for another raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+as the JAX package's does; the paper's own models (``mnist-mlp``,
+``cifar-cnn``) are plain dicts, kept out of ``ARCH_NAMES`` as in JAX.
+Only the configurations a path of the port runs are registered; asking
+for another raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ import importlib
 _ARCH_MODULES = {
     "gemma2-9b": "gemma2_9b",
     "qwen2.5-3b": "qwen2_5_3b",
+    # the paper's own models
+    "mnist-mlp": "mnist_mlp",
+    "cifar-cnn": "cifar_cnn",
 }
 
 # The JAX package's other configurations, and why each is not here.
@@ -28,11 +33,9 @@ _NOT_PORTED = {
     "internvl2-2b": f"it waits for the vision front end {_LATER}",
     "whisper-tiny": f"it waits for the audio front end and cross-attention "
                     f"{_LATER}",
-    "mnist-mlp": "the FL path builds it: repro_torch.models.make_mnist_mlp",
-    "cifar-cnn": "it waits for the CIFAR CNN (ROADMAP §1)",
 }
 
-ARCH_NAMES = list(_ARCH_MODULES)
+ARCH_NAMES = [n for n in _ARCH_MODULES if n not in ("mnist-mlp", "cifar-cnn")]
 
 
 def get_config(name: str, reduced: bool = False):
@@ -44,4 +47,4 @@ def get_config(name: str, reduced: bool = False):
                        f"{sorted(_ARCH_MODULES)}")
     cfg = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}").config
-    return cfg.reduced() if reduced else cfg
+    return cfg.reduced() if reduced and hasattr(cfg, "reduced") else cfg

@@ -1,15 +1,23 @@
-"""Synthetic stand-in for MNIST (port of `repro.data.synthetic`).
+"""Synthetic stand-ins for MNIST and CIFAR (port of
+`repro.data.synthetic`; the files of the real sets are not in the repo).
 
 Images are drawn from a fixed random teacher: each of the 10 classes has a
 smooth prototype image (low-res noise, bilinearly upsampled); a sample is
-prototype[y] + noise.  Layout is NHWC, as in the JAX package.  The IID
-partitioner is a random equal split across K clients (paper §V).
+prototype[y] + noise.  Layout is NHWC, as in the JAX package.
+
+* ``mnist-like``: 28×28×1, 60k train / 10k test, 10 classes.
+* ``cifar-like``: 32×32×3, 50k train / 10k test, 10 classes.
+
+Partitioners follow §V: IID = random equal split across K clients;
+non-IID = sort by label, cut into 200 disjoint shards, deal
+``shards_per_client`` shards to each client.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,6 +39,11 @@ class SyntheticImageConfig:
     @staticmethod
     def mnist_like(num_train: int = 60000, num_test: int = 10000):
         return SyntheticImageConfig("mnist-like", 28, 28, 1, 10,
+                                    num_train, num_test)
+
+    @staticmethod
+    def cifar_like(num_train: int = 50000, num_test: int = 10000):
+        return SyntheticImageConfig("cifar-like", 32, 32, 3, 10,
                                     num_train, num_test)
 
 
@@ -80,3 +93,44 @@ def partition_iid(seed: int, x: torch.Tensor, y: torch.Tensor,
     xs = x[perm].reshape((num_clients, per) + tuple(x.shape[1:]))
     ys = y[perm].reshape(num_clients, per)
     return xs, ys
+
+
+def deal_shards(x: torch.Tensor, y: torch.Tensor, shard_perm: torch.Tensor,
+                num_clients: int, shards_per_client: int,
+                num_shards: int = 200) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper's label-sorted sharding, given the shard permutation:
+    sort by class (a stable sort), keep ``num_shards`` disjoint shards of
+    ``usable // num_shards`` examples, and deal the shards
+    ``shard_perm[:K·spc]`` to the clients in order, ``shards_per_client``
+    each.  Returns stacked (K, spc·shard_size, ...) arrays."""
+    need = num_clients * shards_per_client
+    if need > num_shards:
+        raise ValueError(f"need {need} shards but only {num_shards} exist")
+    n = x.shape[0]
+    usable = (n // num_shards) * num_shards
+    order = torch.sort(y, stable=True).indices[:usable]
+    shards = order.reshape(num_shards, usable // num_shards)
+    chosen = shard_perm[:need].to(y.device).reshape(num_clients,
+                                                    shards_per_client)
+    idx = shards[chosen].reshape(num_clients, -1)
+    return x[idx], y[idx]
+
+
+def partition_noniid(seed: int, x: torch.Tensor, y: torch.Tensor,
+                     num_clients: int, shards_per_client: int,
+                     num_shards: int = 200
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Non-IID split (paper §V; MNIST: 4 shards a client, CIFAR: 7):
+    :func:`deal_shards` with a permutation of the shards drawn from a
+    ``torch.Generator`` seeded with ``seed``."""
+    gen = torch.Generator(x.device).manual_seed(seed)
+    perm = torch.randperm(num_shards, generator=gen, device=x.device)
+    return deal_shards(x, y, perm, num_clients, shards_per_client,
+                       num_shards)
+
+
+def label_histogram(ys: torch.Tensor, num_classes: int = 10) -> np.ndarray:
+    """(K, num_classes) int64 per-client label counts — for non-IID sanity
+    checks."""
+    return np.stack([np.bincount(row, minlength=num_classes)
+                     for row in ys.cpu().numpy()]).astype(np.int64)

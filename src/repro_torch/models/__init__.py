@@ -1,1 +1,2 @@
-from repro_torch.models.small import accuracy, make_mnist_mlp, nll_loss
+from repro_torch.models.small import (accuracy, make_cifar_cnn,
+                                     make_mnist_mlp, nll_loss)

@@ -1,1 +1,9 @@
-from repro_torch.optim.optimizers import Optimizer, constant_schedule, sgd
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    sgd,
+    sgd_momentum,
+    adamw,
+    constant_schedule,
+    inverse_time_schedule,
+    cosine_schedule,
+)

@@ -39,7 +39,9 @@ def fedprox_wrap(loss_fn: Callable, mu_prox: float) -> Callable:
 def make_local_runner(loss_fn: Callable, optimizer, batch_size: int,
                       local_steps: int, mu_prox: float = 0.0):
     """Returns ``run(params, opt_state, x, y, idx) -> (params, opt_state,
-    loss)`` running ``local_steps`` minibatch-SGD steps on every client.
+    loss)`` running ``local_steps`` minibatch steps of ``optimizer`` on
+    every client (its ``update`` gets the leaves, as JAX's runner passes
+    the params).
 
     ``loss_fn(params, x, y)`` maps K-stacked params and (K, B, ...) inputs
     to (K,) per-client mean losses; ``x``/``y`` are the (K, N_k, ...)
@@ -67,7 +69,7 @@ def make_local_runner(loss_fn: Callable, optimizer, batch_size: int,
             loss = loss_fn(tree_unflatten(treedef, p), x[rows, batch],
                            y[rows, batch], *anchor)
             grads = torch.autograd.grad(loss.sum(), p)
-            updates, opt_state = optimizer.update(grads, opt_state)
+            updates, opt_state = optimizer.update(grads, opt_state, leaves)
             with torch.no_grad():
                 leaves = [leaf + u for leaf, u in zip(leaves, updates)]
             losses.append(loss.detach())

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch``, nor
-``chip_smoke.py``, nor ``examples/quickstart_torch.py`` imports ``jax`` or
-the JAX package ``repro``."""
+``chip_smoke.py``, nor the examples ``quickstart_torch.py`` and
+``paper_fig2_torch.py`` imports ``jax`` or the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -12,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "paper_fig2_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
