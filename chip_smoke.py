@@ -36,6 +36,13 @@ Phases, each printed as one JSON object per line:
    ``flex_attention`` (compiled; the softcap as its ``score_mod``, the
    causal/window band as its block mask) where there is a softcap,
    ``scaled_dot_product_attention`` where there is none;
+3a. batched — the trajectory axis of ``cwfl_round`` (B = 40 trajectories
+   of the sweep's shape, and its guarded variant) and of ``ota_aggregate``
+   (the COTAF sweep's B = 8, C = 1; B = 40; decentralized's C = K = 50 on
+   the ring) against their plain versions, every output poisoned with NaN,
+   each trajectory bitwise the unbatched launch on its inputs, timed with
+   their bytes bounds and, for ``ota_aggregate``, ``torch.baddbmm`` (no
+   time may lie under its bytes bound, here or in the kernel phase);
 4. reference — small runs on the card against the same runs on the CPU,
    with the same draws: the static slice, ``flaky-clients``, a
    dead-cluster run whose faults kill whole clusters, each other strategy
@@ -58,15 +65,19 @@ Phases, each printed as one JSON object per line:
    ``build/``), ``hierarchical_ota_allreduce`` on a one-client plan and
    ``run_rounds(..., shard="clients")`` against the slice's run;
 7. scenario — the same width under ``head-failure``, ``flaky-clients``,
-   ``mobile-fading`` and ``cluster-churn``: each fault round through the
-   guarded kernel and no other, per-round live nodes, heads and mask mass,
-   the test accuracy held to floors derived from the JAX package's runs;
+   ``mobile-fading``, ``cluster-churn`` and ``straggler-heavy``: each
+   fault round through the guarded kernel and no other, per-round live
+   nodes, heads and mask mass, the test accuracy held to floors derived
+   from the JAX package's runs; each run in loop mode, then in scan mode
+   under the profiler (its launches counted there, its history the
+   loop's);
 7a. strategies — the same width with ``fedavg``, ``cotaf``,
    ``decentralized``, ``cwfl_prox`` and ``cotaf_prox``: the baselines'
    syncs through ``ota_aggregate`` (once a round, decentralized included),
    the prox variants' local objective, the
    round-5 accuracy held to floors from the JAX package's runs at the same
-   width (``scripts/jax_strategy_reference.py``);
+   width (``scripts/jax_strategy_reference.py``); each run in loop mode,
+   then in scan mode as the scenarios are;
 7b. quickstart — ``examples/quickstart_torch.main()`` on the card end to
    end (K=16, 12 rounds of ``cwfl`` and of ``fedavg``), its final
    accuracies held to floors from the JAX package's and the port's runs
@@ -78,6 +89,22 @@ Phases, each printed as one JSON object per line:
    full scale, 3 rounds each: steady rounds/s, each kernel's launches,
    peak memory, and the round-3 accuracy against floors from the JAX
    package's runs (``scripts/jax_paper_reference.py``);
+7d. trajectory — ``run_rounds`` in loop and scan mode in turns (the scan:
+   an eager first round, then one CUDA graph a round, two kinds for a
+   re-clustering scenario) at full width: paper-static (12 rounds),
+   head-failure and cluster-churn (6), CIFAR CWFL-3 (3): steady rounds/s
+   of each mode, the scan's history against the loop's (bitwise, or the
+   FL gate with the kernels whose launches differ named), and over a
+   profiled run of each mode the launches a round, the device's idle
+   share and the round kernels' launches counted by the profiler (one a
+   round; the wrappers' counters see only the warm-up and the captures);
+7e. monte_carlo — ``run_monte_carlo`` of the ``snr-sweep`` grid (8 seeds
+   × 5 SNRs, 2,000 stacked clients) at MNIST width, 5 rounds, one batch
+   through the batched ``cwfl_round``: trajectory-rounds/s against the
+   same 40 trajectories run one by one in scan mode, each held to its
+   lone run (JAX's tolerances), the peak memory, the profiled launches;
+   a COTAF sweep (8 seeds, 40 dB) through the batched ``ota_aggregate``;
+   ``shard="mc"`` on one NCCL rank against the unsharded sweep;
 8. serve — ``greedy_decode`` of Gemma-2 9B at its published width (f32,
    random weights drawn on the card): 2 requests of 4,608-token prompts,
    16 greedy tokens; prefill seconds, decode tokens/s, the kernel's
@@ -97,7 +124,10 @@ Phases, each printed as one JSON object per line:
    also by kind: grouped convolutions forward and backward, gemms, the
    round kernel), launches and the device's idle share.
 
-The last two lines are the ``{"kernels": [...]}`` summary and
+The reference phase runs its card and CPU runs in loop mode (its count
+of dead rows reads every sync on the host); the small CNN's reference
+runs take the default scan, captured on the card.  The last two lines are
+the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero; it needs a CUDA device and has no CPU path.
 """
@@ -166,23 +196,38 @@ def time_cold(fn, reps: int = 30, flush_bytes: int = 256 << 20) -> float:
 
 
 def device_ms(fn, reps: int = 20, flush_bytes: int = 256 << 20) -> float:
-    """Mean device ms of ``fn()``'s kernels under ``torch.profiler``, the
-    L2 flushed before each call (the flush's own fill kernel left out):
-    ``time_cold`` without the launch's host and event overhead."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Median device ms of ``fn()``, the L2 flushed before each call: CUDA
+    events around the call, recorded while the device still spins on a
+    wait of about a millisecond (``torch.cuda._sleep``) that lets the host
+    enqueue the whole call first, so the events time the device's work
+    and not the host's launch.  (Not the profiler: it has dropped kernel
+    records, 8 of 10 launches of the batched ``cwfl_round`` in one run,
+    which read as a time under the bytes bound.)  A host slower than the
+    wait could only lengthen the reading, never shorten it."""
     flush = torch.empty(flush_bytes // 4, device=DEVICE)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and "FillFunctor" not in e.key) / reps / 1e3
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def above_bound(label: str, times: dict, bound_ms: float) -> None:
+    """No time in ``times`` lies under ``bound_ms``, the least time the
+    card could take: one that did would be a fault of the measurement."""
+    under = {k: v for k, v in times.items() if v < bound_ms}
+    if under:
+        raise AssertionError(f"{label}: timed under its bytes bound of "
+                             f"{bound_ms} ms: {under}")
 
 
 def round_inputs(K: int, C: int, d: int, dtype, seed: int):
@@ -287,6 +332,9 @@ def kernel_phase(kmod, ref_fn, guard: bool = False):
                         achieved_bytes_per_s=nbytes / (ms * 1e-3),
                         device_ms=device_ms(launch),
                         plain_device_ms=device_ms(plain))
+            above_bound(f"{name}[{label}]", {k: line[k] for k in (
+                "ms", "plain_ms", "device_ms", "plain_device_ms")},
+                bound_bytes)
             rows.append({"name": name + timed[label], "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/"
                                    "cwfl_round.cu",
@@ -441,6 +489,9 @@ def ota_kernel_phase(omod, ref_fn):
                         library="torch.addmm", library_max_abs_err=lib_err,
                         library_ms=time_cold(lib),
                         library_device_ms=device_ms(lib))
+            above_bound(f"ota_aggregate[{label}]", {k: line[k] for k in (
+                "ms", "plain_ms", "device_ms", "plain_device_ms", "library_ms",
+                "library_device_ms")}, bound_bytes)
             rows[label] = line
         emit(line)
         if not (ok and line["finite"]):
@@ -542,7 +593,7 @@ def reference_phase(label: str, scenario=None, rounds: int = 3,
         runs[dev], dead[dev] = count_dead_rows(lambda: run_federated(
             init, apply, loss, *small_workload(dev), cfg,
             scenario=scenario, topo_cfg=TopologyConfig(num_clients=8),
-            draws=TorchDraws(draws_seed, "cpu"), device=dev))
+            draws=TorchDraws(draws_seed, "cpu"), device=dev, mode="loop"))
     gpu, cpu = runs[DEVICE], runs["cpu"]
     loss_rel = max(abs(a / b - 1) for a, b in zip(gpu["train_loss"],
                                                    cpu["train_loss"]))
@@ -782,6 +833,7 @@ def dist_phase(omod, kmod, static, rounds: int = 5) -> int:
         stamps = []
         t0 = time.perf_counter()
         h = run_rounds(*workload, cfg, device=DEVICE, shard="clients",
+                       mode="loop",
                        progress=lambda *_: stamps.append(time.perf_counter()))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -844,19 +896,71 @@ def dist_phase(omod, kmod, static, rounds: int = 5) -> int:
 # A round whose mask mass is 0 (a blackout) skips the sync and keeps the
 # last consensus, so its accuracy must equal the round before's; the floors
 # then hold at the last round that synced.
+def fl_gate(gap: dict) -> bool:
+    """Two histories agree: bit for bit, or within the FL card-vs-CPU gate
+    (loss 1e-4 relative, params 1e-4, accuracy 2 of the 2,048 evaluation
+    samples) with equal scenario records."""
+    return gap["bitwise"] or (gap["loss_rel"] <= 1e-4
+                              and gap["param_abs"] <= 1e-4
+                              and gap["acc_abs"] <= 2 / 2048
+                              and gap["records_equal"])
+
+
+def scan_beside_loop(label, loop_history, kmod, omod, rounds, want, run):
+    """``run(mode="scan", timers=)``, the run whose loop-mode history is
+    ``loop_history``, once under ``torch.profiler`` (the card's activity
+    only): the FL kernels' launches as the profiler counts them must be
+    ``want``; the wrappers, called only for the warm-up and the captures,
+    fewer times (the replays launched the rest); and the history the
+    loop's (`fl_gate`).  Returns the scan's steady rounds/s (rounds 2..T,
+    the ``execute`` phase, profiled), both launch counts and the gap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import PhaseTimers
+
+    timers = PhaseTimers()
+    torch.cuda.synchronize()
+    omod.launches = kmod.launches = kmod.launches_guard = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h = run(mode="scan", timers=timers)
+        torch.cuda.synchronize()
+    calls = {"cwfl_round": kmod.launches,
+             "cwfl_round_guard": kmod.launches_guard,
+             "ota_aggregate": omod.launches}
+    every = profiled_launches(prof)
+    gap = histories_equal(h, loop_history)
+    out = {"steady_rounds_per_s_profiled": (rounds - 1)
+           / timers.seconds["execute"],
+           "trace_compile_s": timers.seconds["trace_compile"],
+           "profiled_launches": every, "wrapper_calls": calls,
+           "scan_vs_loop": gap}
+    if every != want:
+        raise AssertionError(f"{label}: the scan run launched {every}, "
+                             f"expected {want} in {rounds} rounds")
+    if any(n and not calls[k] < n for k, n in want.items()):
+        raise AssertionError(f"{label}: the wrappers were called {calls} "
+                             f"times for {every} launches: the scan did "
+                             f"not replay")
+    if not fl_gate(gap):
+        raise AssertionError(f"{label}: the scan history is off the "
+                             f"loop's: {gap}")
+    return out
+
+
 SCENARIOS = ("head-failure", "flaky-clients", "mobile-fading",
-             "cluster-churn")
+             "cluster-churn", "straggler-heavy")
 SCENARIO_FLOOR = 0.89
 STATIC_GAP = 0.03
 
 
-def scenario_phase(kmod, static_acc, rounds: int = 5):
-    """run_federated at full width under each dynamic scenario: every sync
-    of a fault scenario launches the guarded kernel and no other, every
-    other scenario's sync the unguarded one; the test accuracy holds the
-    floors above against ``static_acc``, the slice phase's per-round
-    accuracy.  Returns the guarded launches of the fault scenarios'
-    runs."""
+def scenario_phase(kmod, omod, static_acc, rounds: int = 5):
+    """run_federated at full width under each dynamic scenario, in loop
+    mode and then in scan mode (`scan_beside_loop`; straggler-heavy's
+    straggler rounds take a graph of their own): every sync of a fault
+    scenario launches the guarded kernel and no other, every other
+    scenario's sync the unguarded one; the test accuracy holds the floors
+    above against ``static_acc``, the slice phase's per-round accuracy.
+    Returns the guarded launches of the fault scenarios' loop runs."""
     from repro_torch.core import TopologyConfig
     from repro_torch.sim import get_scenario
     from repro_torch.training import FLConfig, run_federated
@@ -877,6 +981,13 @@ def scenario_phase(kmod, static_acc, rounds: int = 5):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, launches_guard = kmod.launches, kmod.launches_guard
+        scan = scan_beside_loop(
+            name, h, kmod, omod, rounds,
+            {"cwfl_round": 0 if fault else rounds,
+             "cwfl_round_guard": rounds if fault else 0, "ota_aggregate": 0},
+            lambda **kw: run_federated(*workload, cfg, scenario=name,
+                                       topo_cfg=topo_cfg, device=DEVICE,
+                                       **kw))
         rec = h["scenario"]
         for r in range(rounds):
             emit({"phase": "scenario", "scenario": name, "round": r + 1,
@@ -891,7 +1002,8 @@ def scenario_phase(kmod, static_acc, rounds: int = 5):
                                                        - stamps[0]),
                 "cwfl_round_launches": launches,
                 "cwfl_round_guard_launches": launches_guard,
-                "train_loss": h["train_loss"], "test_acc": h["test_acc"]}
+                "train_loss": h["train_loss"], "test_acc": h["test_acc"],
+                "scan": scan}
         emit(line)
         want = (0, rounds) if fault else (rounds, 0)
         if (launches, launches_guard) != want:
@@ -938,10 +1050,11 @@ STRATEGY_RUNS = (
 
 
 def strategies_phase(omod, kmod, rounds: int = 5):
-    """run_federated at full width with each strategy of STRATEGY_RUNS:
-    its syncs' kernel launches, counted from 0 for each run, and its
-    round-5 accuracy against its floor.  Returns the ``ota_aggregate``
-    launches of the one-row runs (FedAvg, COTAF, COTAF-Prox) and of the
+    """run_federated at full width with each strategy of STRATEGY_RUNS, in
+    loop mode and then in scan mode (`scan_beside_loop`): its syncs'
+    kernel launches, counted from 0 for each run, and its round-5
+    accuracy against its floor.  Returns the ``ota_aggregate`` launches
+    of the one-row loop runs (FedAvg, COTAF, COTAF-Prox) and of the
     decentralized one."""
     from repro_torch.training import FLConfig, run_federated
 
@@ -962,15 +1075,19 @@ def strategies_phase(omod, kmod, rounds: int = 5):
         launches = {"ota_aggregate": omod.launches,
                     "cwfl_round": kmod.launches,
                     "cwfl_round_guard": kmod.launches_guard}
+        want = {"ota_aggregate": ota_a_round * rounds,
+                "cwfl_round": cwfl_a_round * rounds, "cwfl_round_guard": 0}
+        scan = scan_beside_loop(
+            name, h, kmod, omod, rounds, want,
+            lambda **kw: run_federated(*workload, cfg, device=DEVICE, **kw))
         line = {"phase": "strategies", "strategy": name, "rounds": rounds,
                 "wall_s": wall, "rounds_per_s": rounds / wall,
                 "steady_rounds_per_s": (rounds - 1) / (stamps[-1]
                                                        - stamps[0]),
                 "launches": launches, "acc_floor": floor,
-                "train_loss": h["train_loss"], "test_acc": h["test_acc"]}
+                "train_loss": h["train_loss"], "test_acc": h["test_acc"],
+                "scan": scan}
         emit(line)
-        want = {"ota_aggregate": ota_a_round * rounds,
-                "cwfl_round": cwfl_a_round * rounds, "cwfl_round_guard": 0}
         if launches != want:
             raise AssertionError(f"{name}: kernel launches {launches}, "
                                  f"expected {want} in {rounds} rounds")
@@ -1799,6 +1916,574 @@ def serve_profile_phase(params, batch, cfg) -> None:
              lambda: tfm.decode_step(params, token, caches, prompt, cfg))
 
 
+# ---------------------------------------------------------------------------
+# The compiled trajectory and the batched Monte-Carlo sweep.
+# ---------------------------------------------------------------------------
+
+class _NaNTorch:
+    """``torch``, but ``empty`` and ``empty_like`` hand out NaN: a kernel
+    wrapper given it as its module's ``torch`` allocates every output
+    poisoned, so an element its kernel leaves unwritten stays NaN."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def empty(*size, **kwargs):
+        if len(size) == 1 and isinstance(size[0], (tuple, list, torch.Size)):
+            size = tuple(size[0])
+        return torch.full(size, math.nan, **kwargs)
+
+    @staticmethod
+    def empty_like(x, **kwargs):
+        return torch.full_like(x, math.nan, **kwargs)
+
+
+def poisoned_outputs(module, fn):
+    """``fn()``, with ``module`` (a kernel wrapper's) allocating its
+    outputs filled with NaN."""
+    saved = module.torch
+    module.torch = _NaNTorch()
+    try:
+        return fn()
+    finally:
+        module.torch = saved
+
+
+# The sweep on the main path: 8 seeds x the 5 SNRs of ``snr-sweep``, and a
+# COTAF sweep of 8 seeds at 40 dB.
+MC_SEEDS = 8
+MC_ROUNDS = 5
+
+
+def stacked_round_inputs(B, K, C, d, dtype):
+    """B trajectories' ``round_inputs``, each from a seed of its own,
+    stacked along a leading axis."""
+    per = [round_inputs(K, C, d, dtype, seed=K + C + d + b) for b in range(B)]
+    return tuple(torch.stack(x) for x in zip(*per))
+
+
+def batched_kernel_phase(kmod, omod, cwfl_ref, ota_ref):
+    """The trajectory axis of kernels 1 and 3 against their plain versions
+    on the card, each output poisoned with NaN before its launch: one
+    launch computes B rounds, each equal to the unbatched launch on its
+    trajectory's inputs, bit for bit (checked at the first, a middle and
+    the last trajectory).  ``cwfl_round`` at the sweep's B = 40 (its
+    guarded variant too, on poisoned inputs, untimed); ``ota_aggregate`` at
+    the COTAF sweep's B = 8, C = 1, at B = 40 and at decentralized's
+    C = K = 50 on the ring (B = 8), with ``torch.baddbmm(N, W, S)``
+    (TF32 off) as its one-call yardstick.  Returns the kernels summary's
+    rows (without their launch counts)."""
+    import dataclasses
+
+    bw, peak, *_ = card_peaks(torch.cuda.get_device_name(0))
+    B, K, C, d = MC_SEEDS * 5, 50, 3, 184214
+    rows = {}
+    for guard in (False, True):
+        args = stacked_round_inputs(B, K, C, d, torch.float32)
+        if guard:
+            per = [poison(tuple(x[b] for x in args), seed=b)
+                   for b in range(B)]
+            args = tuple(torch.stack(x) for x in zip(*per))
+        new, cons = poisoned_outputs(
+            kmod, lambda: kmod.cwfl_round(*args, guard=guard))
+        ref_new, ref_cons = cwfl_ref(*args, guard=guard)
+        torch.cuda.synchronize()
+        err = max(float((new - ref_new).abs().max()),
+                  float((cons - ref_cons).abs().max()))
+        bitwise = []
+        for b in (0, B // 2, B - 1):
+            one_new, one_cons = kmod.cwfl_round(*(x[b] for x in args),
+                                                guard=guard)
+            bitwise.append(bool(torch.equal(one_new, new[b])
+                                and torch.equal(one_cons, cons[b])))
+        finite = bool(torch.isfinite(new).all() and torch.isfinite(cons).all())
+        name = "cwfl_round_guard" if guard else "cwfl_round"
+        line = {"phase": "kernel", "kernel": name, "shape": "batched",
+                "B": B, "K": K, "C": C, "d": d, "max_abs_err": err,
+                "tol": F32_ATOL, "finite": finite,
+                "bitwise_equal_to_unbatched": bitwise}
+        if not guard:
+            nbytes = B * (kmod.hbm_bytes_model(K, C, d)["fused_bytes"]
+                          + 4 * (2 * C * K + C * C))
+            flops = B * d * (2 * C * K + 2 * C * C + 2 * K * C + 3 * C)
+            launch = lambda: kmod.cwfl_round(*args)   # noqa: E731
+            plain = lambda: cwfl_ref(*args)           # noqa: E731
+            line.update(ms=time_cold(launch, reps=10),
+                        device_ms=device_ms(launch, reps=10),
+                        plain_ms=time_cold(plain, reps=5),
+                        plain_device_ms=device_ms(plain, reps=5),
+                        bytes=nbytes, bound_ms_bytes=nbytes / bw * 1e3,
+                        bound_ms_operations=flops / peak * 1e3)
+            above_bound(name, {k: line[k] for k in (
+                "ms", "device_ms", "plain_ms", "plain_device_ms")},
+                line["bound_ms_bytes"])
+            rows["cwfl"] = {
+                "name": f"cwfl_round[batched S={B}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/cwfl_round.cu",
+                "replaces": "src/repro/kernels/cwfl_round.py:42",
+                "launches": None, "max_abs_err": err, "ms": line["ms"],
+                "plain_ms": line["plain_ms"],
+                "bound_ms": max(line["bound_ms_bytes"],
+                                line["bound_ms_operations"]),
+                "bound_by": ("bytes" if line["bound_ms_bytes"]
+                             >= line["bound_ms_operations"]
+                             else "operations"),
+                "library_ms": None, "device_ms": line["device_ms"],
+                "plain_device_ms": line["plain_device_ms"],
+                "shape": {"S": B, "K": K, "C": C, "d": d}}
+        emit(line)
+        if not (err <= F32_ATOL and all(bitwise) and (finite or guard)):
+            raise AssertionError(f"the batched {name} disagrees with its "
+                                 f"plain version or its unbatched launch: "
+                                 f"{line}")
+        del args, new, cons, ref_new, ref_cons
+
+    for label, B, C in (("cotaf", MC_SEEDS, 1), ("s40", 5 * MC_SEEDS, 1),
+                        ("decentralized", MC_SEEDS, K)):
+        g = torch.Generator(DEVICE).manual_seed(B + C)
+        s = torch.randn(B, K, d, generator=g, device=DEVICE)
+        w = torch.rand(B, C, K, generator=g, device=DEVICE)
+        w = w / w.sum(-1, keepdim=True)
+        n = 1e-2 * torch.randn(B, C, d, generator=g, device=DEVICE)
+        before = omod.launches
+        out = poisoned_outputs(omod, lambda: omod.ota_aggregate(s, w, n))
+        torch.cuda.synchronize()
+        a_call = omod.launches - before
+        ref = ota_ref(s, w, n)
+        err = float((out - ref).abs().max())
+        bitwise = [bool(torch.equal(omod.ota_aggregate(s[b], w[b], n[b]),
+                                    out[b])) for b in (0, B // 2, B - 1)]
+        finite = bool(torch.isfinite(out).all())
+        lib = lambda: torch.baddbmm(n, w, s)   # noqa: E731
+        lib_err = float((lib() - ref).abs().max())
+        nbytes = 4 * B * (K * d + 2 * C * d + C * K)
+        flops = B * d * (2 * C * K + C)
+        launch = lambda: omod.ota_aggregate(s, w, n)   # noqa: E731
+        plain = lambda: ota_ref(s, w, n)               # noqa: E731
+        line = {"phase": "kernel", "kernel": "ota_aggregate",
+                "shape": f"batched_{label}", "B": B, "K": K, "C": C, "d": d,
+                "plan": dataclasses.asdict(omod.launch_plan(
+                    K, C, d, torch.float32, torch.float32, batch=B)),
+                "launches_a_call": a_call, "max_abs_err": err,
+                "tol_abs_and_rel": OTA_TOL[torch.float32], "finite": finite,
+                "bitwise_equal_to_unbatched": bitwise,
+                "ms": time_cold(launch, reps=10),
+                "device_ms": device_ms(launch, reps=10),
+                "plain_ms": time_cold(plain, reps=5),
+                "plain_device_ms": device_ms(plain, reps=5),
+                "library": "torch.baddbmm", "library_max_abs_err": lib_err,
+                "library_ms": time_cold(lib, reps=10),
+                "library_device_ms": device_ms(lib, reps=10),
+                "bytes": nbytes, "bound_ms_bytes": nbytes / bw * 1e3,
+                "bound_ms_operations": flops / peak * 1e3}
+        emit(line)
+        above_bound(f"ota_aggregate batched_{label}", {k: line[k] for k in (
+            "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+            "library_device_ms")}, line["bound_ms_bytes"])
+        tol = OTA_TOL[torch.float32]
+        if not (bool(torch.all((out - ref).abs() <= tol + tol * ref.abs()))
+                and finite and all(bitwise) and a_call == 1
+                and lib_err <= tol):
+            raise AssertionError(f"the batched ota_aggregate disagrees at "
+                                 f"{label}: {line}")
+        rows[label] = line
+        del s, w, n, out, ref
+    cotaf, s40 = rows["cotaf"], rows["s40"]
+    ota_row = {
+        "name": f"ota_aggregate[batched S={MC_SEEDS} C=1]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ota_aggregate.cu",
+        "replaces": "src/repro/kernels/ota_aggregate.py:38",
+        "launches": None, "max_abs_err": cotaf["max_abs_err"],
+        "ms": cotaf["ms"], "plain_ms": cotaf["plain_ms"],
+        "bound_ms": max(cotaf["bound_ms_bytes"],
+                        cotaf["bound_ms_operations"]),
+        "bound_by": ("bytes" if cotaf["bound_ms_bytes"]
+                     >= cotaf["bound_ms_operations"] else "operations"),
+        "library_ms": cotaf["library_ms"], "library": "torch.baddbmm",
+        "device_ms": cotaf["device_ms"],
+        "plain_device_ms": cotaf["plain_device_ms"],
+        "library_device_ms": cotaf["library_device_ms"],
+        "shape": {"S": MC_SEEDS, "K": K, "C": 1, "d": d},
+        "ms_s40": s40["ms"], "device_ms_s40": s40["device_ms"],
+        "bound_ms_s40": s40["bound_ms_bytes"],
+        "library_device_ms_s40": s40["library_device_ms"],
+        "device_ms_c50": rows["decentralized"]["device_ms"],
+        "bound_ms_c50": max(rows["decentralized"]["bound_ms_bytes"],
+                            rows["decentralized"]["bound_ms_operations"]),
+        "library_device_ms_c50": rows["decentralized"]["library_device_ms"]}
+    return rows["cwfl"], ota_row
+
+
+def histories_equal(a: dict, b: dict) -> dict:
+    """How far two runs' histories are apart: the largest relative loss
+    gap, accuracy gap, final-params gap and whether the scenario records
+    agree, and whether all of it is bitwise."""
+    from repro_torch.utils import tree_leaves
+
+    la, lb = torch.as_tensor(a["train_loss"]), torch.as_tensor(b["train_loss"])
+    aa, ab = torch.as_tensor(a["test_acc"]), torch.as_tensor(b["test_acc"])
+    pa, pb = tree_leaves(a["final_params"]), tree_leaves(b["final_params"])
+    rec = a.get("scenario") == b.get("scenario")
+    bitwise = (torch.equal(la, lb) and torch.equal(aa, ab) and rec
+               and all(torch.equal(x, y) for x, y in zip(pa, pb)))
+    return {"bitwise": bool(bitwise),
+            "loss_rel": float(((la - lb).abs() / lb.abs()).max()),
+            "acc_abs": float((aa - ab).abs().max()),
+            "param_abs": max(float((x - y).abs().max())
+                             for x, y in zip(pa, pb)),
+            "records_equal": bool(rec)}
+
+
+def scan_window(prof, rounds: int, skip_first: bool = False) -> dict:
+    """From a profile of a whole run with `PhaseTimers` (their
+    record_function ranges): over the window from the first ``execute``
+    range to the last — in scan mode rounds 2..T (draws, replays, the
+    final wait for the device), in loop mode every round (``skip_first``
+    drops round 1) — less any ``trace_compile`` range inside it (a
+    capture, before which the device has finished the rounds so far): the
+    device work a round (kernels and copies, by the union of their
+    intervals in the window), the launches a round, the device's idle
+    share of the window's wall time, the launches of each round kernel,
+    the ten kernels of most device time (ms and launches a round), and
+    each kernel's launches by name (``by_name``)."""
+    from torch.autograd import DeviceType
+
+    def ranges(name):
+        return sorted((e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.name == name and e.device_type == DeviceType.CPU)
+
+    execute = ranges("execute")[1 if skip_first else 0:]
+    if not execute:
+        raise AssertionError("the profile holds no execute range")
+    lo, hi = execute[0][0], execute[-1][1]
+    wall_us = hi - lo - sum(min(b, hi) - max(a, lo)
+                            for a, b in ranges("trace_compile")
+                            if a < hi and b > lo)
+    # The timers' ranges also show on the device's timeline (spanning the
+    # kernels launched inside them): they are not device work.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name not in ("execute", "trace_compile")
+               and lo <= e.time_range.start <= hi]
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, min(e.time_range.end, hi))
+                       for e in kernels):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    n = rounds - 1
+    by_name, ms_by_name = {}, {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+        ms_by_name[e.name] = (ms_by_name.get(e.name, 0.0)
+                              + (e.time_range.end - e.time_range.start) / 1e3)
+    top = sorted(ms_by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"rounds_in_window": n, "wall_ms_per_round": wall_us / n / 1e3,
+            "device_busy_ms_per_round": busy_us / n / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us,
+            "launches_per_round": len(kernels) / n,
+            **{kind: sum(c for k, c in by_name.items()
+                         if kernel_kind(k) == kind)
+               for kind in ("cwfl_round", "cwfl_round_guard",
+                            "ota_aggregate")},
+            "top_device_ms_per_round": [[k[:100], ms / n, by_name[k] / n]
+                                        for k, ms in top],
+            "by_name": by_name}
+
+
+def kernel_kind(name: str):
+    """Which of the port's FL kernels a profiled kernel is, by its name:
+    ``cwfl_round`` or ``cwfl_round_guard`` (the kernel's template
+    arguments are T, C, Guard, Batched), ``ota_aggregate`` (its ring or
+    its column path), else None."""
+    import re
+
+    m = re.search(r"cwfl_round_kernel<[^,]+, \d+, (true|false)", name)
+    if m:
+        return "cwfl_round_guard" if m.group(1) == "true" else "cwfl_round"
+    if "ota_aggregate_kernel<" in name or "ota_column_kernel<" in name:
+        return "ota_aggregate"
+    return None
+
+
+def profiled_launches(prof) -> dict:
+    """Every launch of the FL kernels in a profile, by kernel."""
+    from torch.autograd import DeviceType
+
+    kinds = [kernel_kind(e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {k: kinds.count(k) for k in ("cwfl_round", "cwfl_round_guard",
+                                        "ota_aggregate")}
+
+
+# The trajectory phase's runs: label, scenario, rounds, the round kernel
+# each round launches (unguarded, guarded), and whether it is the CIFAR
+# column's CWFL-3 row of the paper phase.
+TRAJECTORY_RUNS = (
+    ("paper-static", "paper-static", 12, (1, 0), False),
+    ("head-failure", "head-failure", 6, (0, 1), False),
+    ("cluster-churn", "cluster-churn", 6, (1, 0), False),
+    ("cifar/CWFL-3", None, 3, (1, 0), True),
+)
+
+
+def kernel_diff(loop: dict, scan: dict, n: int) -> dict:
+    """The kernels (by name, launches a round) that one mode's window runs
+    and the other's does not, or runs as many times: where a history that
+    is not bitwise parts."""
+    names = set(loop) | set(scan)
+    diff = {k: (loop.get(k, 0) / n, scan.get(k, 0) / n) for k in names
+            if loop.get(k, 0) != scan.get(k, 0)}
+    return {k[:120]: v for k, v in sorted(diff.items(),
+                                          key=lambda kv: -abs(kv[1][0]
+                                                              - kv[1][1]))}
+
+
+def trajectory_phase(kmod):
+    """Each of TRAJECTORY_RUNS at full width, loop and scan in turns (loop,
+    scan, loop, scan), then once more in each mode under
+    ``torch.profiler``: the scan histories against the loop's (bitwise,
+    or within the FL gate), steady rounds/s of each (loop: rounds 2..T by
+    the progress callback's stamps; scan: the ``execute`` phase of
+    `PhaseTimers`, rounds 2..T), and over each profiled run's rounds 2..T
+    the launches a round, the device's idle share, the round kernels'
+    launches counted by the profiler, and the kernels whose launches
+    differ between the modes.  Returns the profiled guarded launches of
+    the fault run."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import TopologyConfig
+    from repro_torch.obs import PhaseTimers
+    from repro_torch.paper.common import BenchScale, run_setting
+    from repro_torch.training import FLConfig, run_federated
+
+    workload = full_width_workload()
+    guarded = 0
+    for label, scenario, rounds, (want, want_guard), cifar in TRAJECTORY_RUNS:
+        def run(mode, timers=None, progress=None):
+            if cifar:
+                scale = dataclasses.replace(BenchScale.full(), rounds=rounds)
+                return run_setting("cifar", False, "cwfl", scale,
+                                   device=DEVICE, mode=mode, timers=timers,
+                                   progress=progress)
+            cfg = FLConfig(rounds=rounds, num_clusters=3, snr_db=40.0,
+                           seed=0)
+            return run_federated(*workload, cfg, scenario=scenario,
+                                 topo_cfg=TopologyConfig(num_clients=50),
+                                 device=DEVICE, mode=mode, timers=timers,
+                                 progress=progress)
+
+        steady, hist = {"loop": [], "scan": []}, {}
+        for mode in ("loop", "scan", "loop", "scan"):
+            stamps, timers = [], PhaseTimers()
+            torch.cuda.synchronize()
+            h = run(mode, timers=timers if mode == "scan" else None,
+                    progress=(None if mode == "scan" else
+                              lambda *_: stamps.append(time.perf_counter())))
+            torch.cuda.synchronize()
+            if mode == "loop":
+                steady["loop"].append((rounds - 1) / (stamps[-1]
+                                                      - stamps[0]))
+            else:
+                steady["scan"].append((rounds - 1)
+                                      / timers.seconds["execute"])
+                steady.setdefault("scan_trace_compile_s", []).append(
+                    timers.seconds["trace_compile"])
+            hist.setdefault(mode, []).append(h)
+            del h
+        windows = {}
+        for mode in ("loop", "scan"):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            kmod.launches = kmod.launches_guard = 0
+            with prof:
+                run(mode, timers=PhaseTimers())
+                torch.cuda.synchronize()
+            windows[mode] = scan_window(prof, rounds,
+                                        skip_first=mode == "loop")
+            calls = {"cwfl_round": kmod.launches,
+                     "cwfl_round_guard": kmod.launches_guard}
+        every = profiled_launches(prof)
+        window = windows["scan"]
+        by_name = {m: w.pop("by_name") for m, w in windows.items()}
+        gap = histories_equal(hist["scan"][0], hist["loop"][0])
+        line = {"phase": "trajectory", "run": label, "rounds": rounds,
+                "steady_rounds_per_s_loop": steady["loop"],
+                "steady_rounds_per_s_scan": steady["scan"],
+                "scan_trace_compile_s": steady["scan_trace_compile_s"],
+                "scan_vs_loop": gap,
+                # Each mode against itself: a gap here is the kernels'
+                # own run-to-run spread, not the capture's.
+                "loop_vs_loop": histories_equal(*hist["loop"]),
+                "scan_vs_scan": histories_equal(*hist["scan"]),
+                "profiled_scan": window,
+                "profiled_loop": windows["loop"],
+                "kernels_that_differ": kernel_diff(
+                    by_name["loop"], by_name["scan"], rounds - 1),
+                # The backward kernels (cuDNN's dgrad/wgrad among them),
+                # some of which may sum with atomics.
+                "backward_kernels": sorted(
+                    k[:120] for k in by_name["scan"]
+                    if "grad" in k.lower() or "bwd" in k.lower()),
+                "profiled_launches_whole_run": every,
+                "wrapper_calls": calls,
+                "train_loss_scan": hist["scan"][0]["train_loss"],
+                "test_acc_scan": hist["scan"][0]["test_acc"]}
+        emit(line)
+        # One launch a round as the profiler counts them, the wrapper
+        # called only for the warm-up and the captures: the replays
+        # launched the rest.  (The window's own counts, on the host's
+        # clock, may clip a launch at its edge and are reported only.)
+        kind = "cwfl_round_guard" if want_guard else "cwfl_round"
+        if not calls[kind] < every[kind]:
+            raise AssertionError(f"{label}: the wrapper was called "
+                                 f"{calls[kind]} times for {every[kind]} "
+                                 f"launches: the scan did not replay")
+        if (every["cwfl_round"], every["cwfl_round_guard"]) != (
+                want * rounds, want_guard * rounds):
+            raise AssertionError(f"{label}: the profiled scan run launched "
+                                 f"the round kernels {every}, expected one a "
+                                 f"round")
+        if not fl_gate(gap):
+            raise AssertionError(f"{label}: the scan history is off the "
+                                 f"loop's: {gap}")
+        guarded += every["cwfl_round_guard"]
+    return guarded
+
+
+def monte_carlo_phase(kmod, omod):
+    """``run_monte_carlo`` at the paper's MNIST width on the card: the
+    ``snr-sweep`` grid of MC_SEEDS seeds x 5 SNRs (40 trajectories, 2,000
+    stacked clients) with ``cwfl``, MC_ROUNDS rounds, as one batch; its
+    trajectory-rounds/s (rounds 2..T, the ``execute`` phase) against the
+    same 40 trajectories run one by one in scan mode, each of which must
+    agree with its element of the sweep (JAX's tolerances,
+    tests/test_sim_engine.py: loss rtol 2e-5, accuracy atol 1e-2); the
+    peak device memory; one profiled sweep (one launch of the batched
+    round kernel a round).  Then a COTAF sweep (MC_SEEDS seeds at 40 dB)
+    through the batched ``ota_aggregate``, against its lone runs; and
+    ``shard="mc"`` on one NCCL rank against the unsharded sweep.  Returns
+    the profiled launches of the batched kernels on the two sweeps."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import PhaseTimers
+    from repro_torch.sim import get_scenario, run_monte_carlo, run_rounds
+    from repro_torch.training import FLConfig
+
+    workload = full_width_workload()
+    launches = {}
+    for strategy, scenario in (("cwfl", "snr-sweep"), ("cotaf", None)):
+        cfg = FLConfig(strategy=strategy, rounds=MC_ROUNDS, num_clusters=3,
+                       snr_db=40.0, seed=0)
+        grid = get_scenario(scenario).snr_grid if scenario else (None,)
+        B = MC_SEEDS * len(grid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timers = PhaseTimers()
+        t0 = time.perf_counter()
+        h = run_monte_carlo(*workload, cfg, scenario=scenario,
+                            seeds=MC_SEEDS, timers=timers, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        loss = h["train_loss"].reshape(B, MC_ROUNDS)
+        acc = h["test_acc"].reshape(B, MC_ROUNDS)
+
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        kmod.launches = omod.launches = 0
+        with prof:
+            again = run_monte_carlo(*workload, cfg, scenario=scenario,
+                                    seeds=MC_SEEDS, timers=PhaseTimers(),
+                                    device=DEVICE)
+            torch.cuda.synchronize()
+        window, every = scan_window(prof, MC_ROUNDS), profiled_launches(prof)
+        window.pop("by_name")
+        calls = {"cwfl_round": kmod.launches, "ota_aggregate": omod.launches}
+        kernel = "cwfl_round" if strategy == "cwfl" else "ota_aggregate"
+        launches[strategy] = every[kernel]
+        repeat_equal = bool(torch.equal(again["train_loss"],
+                                        h["train_loss"]))
+
+        lone_exec, worst = 0.0, {"loss_rel": 0.0, "acc_abs": 0.0}
+        for b in range(B):
+            s, snr = divmod(b, len(grid))
+            lone_timers = PhaseTimers()
+            one = run_rounds(*workload, dataclasses.replace(
+                cfg, seed=cfg.seed + s,
+                snr_db=cfg.snr_db if grid[snr] is None else grid[snr]),
+                mode="scan", timers=lone_timers, device=DEVICE)
+            lone_exec += lone_timers.seconds["execute"]
+            worst["loss_rel"] = max(worst["loss_rel"], float(
+                ((one["train_loss"] - loss[b]).abs()
+                 / one["train_loss"].abs()).max()))
+            worst["acc_abs"] = max(worst["acc_abs"], float(
+                (one["test_acc"] - acc[b]).abs().max()))
+        traj_rounds = B * (MC_ROUNDS - 1)
+        line = {"phase": "monte_carlo", "strategy": strategy,
+                "scenario": scenario or "paper-static", "seeds": MC_SEEDS,
+                "snr_grid": list(grid), "trajectories": B,
+                "stacked_clients": B * 50, "rounds": MC_ROUNDS,
+                "wall_s": wall, "timers": timers.as_dict(),
+                "trajectory_rounds_per_s": traj_rounds
+                / timers.seconds["execute"],
+                "serial_scan_trajectory_rounds_per_s": traj_rounds
+                / lone_exec,
+                "peak_mem_bytes": peak, "profiled_sweep": window,
+                "profiled_launches_whole_run": every,
+                "wrapper_calls": calls, "vs_lone_runs": worst,
+                "tol": {"loss_rel": 2e-5, "acc_abs": 1e-2},
+                "repeat_bitwise": repeat_equal,
+                "final_acc": h["final_acc"].tolist()}
+        emit(line)
+        if not (worst["loss_rel"] <= 2e-5 and worst["acc_abs"] <= 1e-2):
+            raise AssertionError(f"the {strategy} sweep disagrees with its "
+                                 f"lone runs: {line}")
+        if every[kernel] != MC_ROUNDS or calls[kernel] != 2:
+            raise AssertionError(f"the {strategy} sweep launched {kernel} "
+                                 f"{every[kernel]} times in {MC_ROUNDS} "
+                                 f"rounds from {calls[kernel]} wrapper calls, "
+                                 f"expected one a round from the warm-up's "
+                                 f"call and the capture's")
+        if not all(math.isfinite(x) for x in h["train_loss"].flatten()
+                   .tolist()):
+            raise AssertionError(f"non-finite sweep loss: {line}")
+        if strategy == "cwfl":
+            sweep = h
+
+    # shard="mc" on one NCCL rank: the whole grid is its chunk.
+    cfg = FLConfig(rounds=MC_ROUNDS, num_clusters=3, snr_db=40.0, seed=0)
+    store = ROOT / "build" / f"mc-store-{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        sharded = run_monte_carlo(*workload, cfg, scenario="snr-sweep",
+                                  seeds=MC_SEEDS, shard="mc", device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    same = (torch.equal(sharded["train_loss"], sweep["train_loss"])
+            and torch.equal(sharded["test_acc"], sweep["test_acc"]))
+    emit({"phase": "monte_carlo", "shard": "mc", "ranks": 1,
+          "bitwise_equal_to_unsharded": bool(same),
+          "loss_abs_gap": float((sharded["train_loss"]
+                                 - sweep["train_loss"]).abs().max())})
+    if not same:
+        raise AssertionError("shard='mc' on one rank disagrees with the "
+                             "unsharded sweep")
+    return launches
+
+
 def serial_build_seconds(sources) -> float:
     """Seconds of a cold build of ``sources`` with one ``nvcc`` after
     another, into a scratch directory: against the build phase's own
@@ -1882,8 +2567,11 @@ def main() -> None:
     ota_row, ota_c1_row, ota_c50_row, ota_cifar_row = ota_kernel_phase(
         omod, ota_aggregate_ref)
     fa_row, fa_bf16_row = flash_kernel_phase(fa, flash_attention_ref)
+    batched_cwfl_row, batched_ota_row = batched_kernel_phase(
+        kmod, omod, cwfl_round_ref, ota_aggregate_ref)
     rows = [cwfl_row, guard_row, ota_row, ota_c1_row, ota_c50_row, fa_row,
-            fa_bf16_row, cwfl_cifar_row, cwfl_c4_row, ota_cifar_row]
+            fa_bf16_row, cwfl_cifar_row, cwfl_c4_row, ota_cifar_row,
+            batched_cwfl_row, batched_ota_row]
     reference_phase("paper-static")
     reference_phase("flaky-clients", "flaky-clients")
     dead = reference_phase("dead-cluster", dead_cluster_scenario(),
@@ -1900,13 +2588,17 @@ def main() -> None:
     lm_reference_phase(fa)
     cwfl_row["launches"], static = slice_phase(kmod, omod)
     ota_row["launches"] = dist_phase(omod, kmod, static)
-    guard_row["launches"] = scenario_phase(kmod, static["test_acc"])
+    guard_row["launches"] = scenario_phase(kmod, omod, static["test_acc"])
     ota_c1_row["launches"], ota_c50_row["launches"] = strategies_phase(
         omod, kmod)
     quickstart_phase(omod, kmod)
     paper_launches = paper_phase(omod, kmod)
     for row in (cwfl_cifar_row, cwfl_c4_row, ota_cifar_row):
         row["launches"] = paper_launches[row["name"]]
+    guard_row["launches_scan_profiled"] = trajectory_phase(kmod)
+    mc_launches = monte_carlo_phase(kmod, omod)
+    batched_cwfl_row["launches"] = mc_launches["cwfl"]
+    batched_ota_row["launches"] = mc_launches["cotaf"]
     fa_row["launches"], params, batch, cfg, gate = serve_phase(fa)
     serve_profile_phase(params, batch, cfg)
     del params

@@ -5,8 +5,9 @@
 
 Builds patched copies of ``src/repro_torch/kernels/csrc/flash_attention.cu``
 into ``build/fa_phases/`` and runs each at one of ``chip_smoke.py``'s
-``FA_SHAPES`` (default ``gemma2_global``), with its device time (mean of
-``reps`` launches under ``torch.profiler``, the split pass included) and
+``FA_SHAPES`` (default ``gemma2_global``), with its device time (the
+median of ``reps`` launches, ``chip_smoke.device_ms``, the split pass
+included) and
 its error against the plain version:
 
 - ``kernel``: the source as it is;

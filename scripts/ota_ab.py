@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Parent/change comparison of the ``ota_aggregate`` kernel on one GPU.
+"""Parent/change comparison of the ``ota_aggregate`` kernel (or, with
+``--kernel cwfl_round``, of the round kernel) on one GPU.
 
-    python3 scripts/ota_ab.py [--parent DIR] [--shapes LABEL ...] [--reps N]
+    python3 scripts/ota_ab.py [--parent DIR] [--kernel NAME]
+        [--shapes LABEL ...] [--reps N]
 
 Runs the kernel of this checkout's ``src/repro_torch`` (and, with
 ``--parent``, that of another checkout, such as the parent commit unpacked
@@ -18,7 +20,11 @@ turns; each keeps its first outputs under ``build/ota_ab/``, and the last
 lines give, for each shape, the largest |Δ| between the two checkouts'
 outputs.  Prints the card's ``nvidia-smi`` line, then one JSON object a
 line: each library's compiler report (registers, spills), each shape, each
-comparison.  Needs a CUDA device; exits 1 without one.
+comparison.  With ``--kernel cwfl_round`` the same at ``chip_smoke.py``'s
+``CWFL_SHAPES`` (``chip_smoke.round_inputs``), unguarded and guarded (on
+``chip_smoke.poison``'s inputs), both outputs compared; every shape is
+timed (device time, L2 flushed).  Needs a CUDA device; exits 1 without
+one.
 """
 import argparse
 import dataclasses
@@ -29,6 +35,56 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "ota_ab"
+
+
+def round_worker(src: str, label: str, shapes, reps: int) -> None:
+    """One checkout's ``cwfl_round`` at ``shapes`` (labels of
+    CWFL_SHAPES), unguarded and guarded."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    sys.path.insert(0, src)
+    from repro_torch.kernels import cwfl_round as kmod
+    from repro_torch.kernels._build import build, library_path
+    from repro_torch.kernels.ref import cwfl_round_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build([kmod.SOURCE])
+    log = library_path(kmod.SOURCE).with_suffix(".log").read_text()
+    print(json.dumps({"tree": label, "library": kmod.SOURCE.name, "ptxas": [
+        ln.strip() for ln in log.splitlines()
+        if any(w in ln for w in ("entry function", "registers", "spill",
+                                  "arning"))]}),
+        flush=True)
+    (OUT / label).mkdir(parents=True, exist_ok=True)
+    for label_s, K, C, d, dtype in cs.CWFL_SHAPES:
+        if shapes and label_s not in shapes:
+            continue
+        for guard in (False, True):
+            args = cs.round_inputs(K, C, d, dtype, seed=K + C + d)
+            if guard:
+                args = cs.poison(args, seed=K + C + d)
+            before = kmod.launches + kmod.launches_guard
+            new, cons = kmod.cwfl_round(*args, guard=guard)
+            torch.cuda.synchronize()
+            ref_new, ref_cons = cwfl_round_ref(*args, guard=guard)
+            name = f"{label_s}{'_guard' if guard else ''}"
+            call = lambda: kmod.cwfl_round(*args, guard=guard)   # noqa: E731
+            line = {"tree": label, "shape": name, "K": K, "C": C, "d": d,
+                    "dtype": str(dtype),
+                    "launches_a_call": (kmod.launches + kmod.launches_guard
+                                        - before),
+                    "max_abs_err": max(
+                        float((new.float() - ref_new.float()).abs().max()),
+                        float((cons - ref_cons).abs().max())),
+                    "device_ms": cs.device_ms(call, reps)}
+            saved = OUT / label / f"{name}.pt"
+            if not saved.exists():
+                torch.save(torch.cat([new.float().flatten().cpu(),
+                                      cons.cpu()]), saved)
+            print(json.dumps(line), flush=True)
 
 
 def worker(src: str, label: str, shapes, reps: int) -> None:
@@ -103,14 +159,17 @@ def compare(labels) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="root of the checkout to compare with")
+    ap.add_argument("--kernel", default="ota_aggregate",
+                    choices=("ota_aggregate", "cwfl_round"))
     ap.add_argument("--shapes", nargs="*", default=[],
-                    help="OTA_SHAPES labels (default: all)")
+                    help="OTA_SHAPES (CWFL_SHAPES) labels (default: all)")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--worker", nargs=2, metavar=("SRC", "LABEL"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker[0], args.worker[1], args.shapes, args.reps)
+        (round_worker if args.kernel == "cwfl_round" else worker)(
+            args.worker[0], args.worker[1], args.shapes, args.reps)
         return
     import shutil
 
@@ -129,8 +188,8 @@ def main() -> None:
         runs = [parent, change, change, parent]
     for label, src in runs:
         subprocess.run([sys.executable, __file__, "--worker", src, label,
-                        "--reps", str(args.reps), "--shapes", *args.shapes],
-                       check=True)
+                        "--kernel", args.kernel, "--reps", str(args.reps),
+                        "--shapes", *args.shapes], check=True)
     if args.parent:
         compare(("parent", "change"))
 

@@ -20,15 +20,17 @@ blocks of 256) and variants of it made by replacing text in a copy under
   next batch in flight, blocks of 512 or 1,024 columns (``VECTOR_COLUMN``
   below);
 * ``ring``: the ring (the path for C > 8) at these shapes;
-* with ``--parent``, the parent checkout's kernel (its C ABI of eight
-  arguments, the weights cast to f32 outside the timing).
+* with ``--parent``, the parent checkout's kernel (the C ABI of the
+  kernel's first design, eight arguments, the weights cast to f32
+  outside the timing; the checkout's entry points take one trajectory,
+  ``batch`` = 1).
 
 Then, at the C <= 8 shapes of ``chip_smoke.py``'s ``OTA_SHAPES`` and at
 C = 8 at full width in f32 and in bf16, calls each library's entry point
 directly on the same inputs (bf16 weights go in as they are), its output
 poisoned with NaN before; checks every output bitwise against
 ``change``'s; and times each with the L2 flushed (``chip_smoke.device_ms``,
-the mean device time), three rounds in turn.  Prints the card's
+the median device time), three rounds in turn.  Prints the card's
 ``nvidia-smi`` line, each library's registers and spills, then one JSON
 object a shape.  Needs a CUDA device; exits 1 without one.
 """
@@ -169,7 +171,9 @@ constexpr int kColumnUnroll = UNROLL;
 // d = 184,214; three in four bf16 rows) are joined across lanes by
 // shuffles (join_cols); y goes out at the widest width each row's address
 // allows (st16).
-template <typename T, typename TN, int C>
+// kBatched: the checkout's trajectory axis, which this variant, timed at
+// one trajectory, does not take.
+template <typename T, typename TN, int C, bool kBatched>
 __global__ void __launch_bounds__(kColumnThreads)
     ota_column_kernel(const T* __restrict__ s, const void* __restrict__ w,
                       int w_bf16, const TN* __restrict__ n,
@@ -331,7 +335,7 @@ def build(sources, parent):
                 + [ctypes.c_longlong, ctypes.c_void_p] if name == "parent"
                 else [ctypes.c_void_p] * 2 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                + [ctypes.c_longlong, ctypes.c_void_p])
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -377,7 +381,7 @@ def main():
                     return fn(s.data_ptr(), w32.data_ptr(), n.data_ptr(),
                               out.data_ptr(), K, C, d, st)
                 return fn(s.data_ptr(), w.data_ptr(), int(w.dtype == bf16),
-                          n.data_ptr(), out.data_ptr(), K, C, d, st)
+                          n.data_ptr(), out.data_ptr(), K, C, d, 1, st)
 
             err = call()
             torch.cuda.synchronize()

@@ -23,6 +23,12 @@ comes in as unit normals in the flat leaf order, scaled here by each
 row's receiver std — JAX draws
 ``std[:, None] * normal(key, ...)`` per leaf, so unit normals passed in
 reproduce its noise exactly.
+
+A Monte-Carlo sweep's trajectories sync together (the ``*_batch``
+functions): their clients stacked beside K, their states stacked along a
+leading trajectory axis (`repro_torch.core.cwfl.stack_states`), the
+weights computed under ``torch.func.vmap``, and one batched launch of
+the kernel a round for all of them.
 """
 from __future__ import annotations
 
@@ -33,10 +39,10 @@ import torch
 
 from repro_torch.core import channel as ch
 from repro_torch.core.cwfl import (_flat_pack, _flat_unpack, _sqrt32,
-                                   per_client_mean_sq)
+                                   f32_scalar, per_client_mean_sq)
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.ota_aggregate import ota_aggregate
-from repro_torch.utils.pytree import tree_flatten
+from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
 
 def _mix(stacked_params, weights: torch.Tensor, noise: torch.Tensor):
@@ -53,6 +59,32 @@ def _mix(stacked_params, weights: torch.Tensor, noise: torch.Tensor):
     else:
         new_flat, cons_flat = y, torch.mean(y, dim=0)
     return _flat_unpack(new_flat, cons_flat, leaves, treedef, K)
+
+
+def _mix_batch(stacked_params, weights: torch.Tensor, noise: torch.Tensor):
+    """:func:`_mix` of B stacked trajectories in one launch: leaves
+    (B·K, ...), trajectory b's clients at rows b·K .. b·K + K − 1;
+    ``weights`` (B, R, K), ``noise`` (B, R, d).  Returns the (B·K, ...)
+    tree and the B consensus trees (leaves (B, ...))."""
+    leaves, treedef = tree_flatten(stacked_params)
+    BK = leaves[0].shape[0]
+    B = weights.shape[0]
+    K = BK // B
+    flat = _flat_pack(leaves, BK).view(B, K, -1)
+    y = ota_aggregate(flat, weights, noise)                       # (B, R, d)
+    if y.shape[1] == 1:
+        new_flat, cons_flat = y.expand(B, K, -1), y[:, 0]
+    else:
+        new_flat, cons_flat = y, torch.mean(y, dim=1)
+    return _flat_unpack(new_flat.reshape(BK, -1), cons_flat, leaves,
+                        treedef, BK)
+
+
+def _by_trajectory(stacked_params, B: int):
+    """``(treedef, leaves)`` with every (B·K, ...) leaf as (B, K, ...)."""
+    leaves, treedef = tree_flatten(stacked_params)
+    K = leaves[0].shape[0] // B
+    return treedef, [x.reshape((B, K) + x.shape[1:]) for x in leaves]
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +105,20 @@ def fedavg_aggregate(stacked_params, weights: Optional[torch.Tensor] = None):
     weights = weights / weights.sum()
     return _mix(stacked_params, weights[None, :],
                 torch.zeros((1, d), dtype=torch.float32, device=dev))
+
+
+def fedavg_aggregate_batch(stacked_params, num_trajectories: int):
+    """:func:`fedavg_aggregate` (equal weights) of B stacked trajectories
+    in one launch; see :func:`_mix_batch`."""
+    leaves, _ = tree_flatten(stacked_params)
+    B = num_trajectories
+    K, d = leaves[0].shape[0] // B, sum(x[0].numel() for x in leaves)
+    dev = leaves[0].device
+    weights = torch.full((K,), 1.0 / K, dtype=torch.float32, device=dev)
+    weights = weights / weights.sum()
+    return _mix_batch(stacked_params, weights.expand(B, 1, K),
+                      torch.zeros((B, 1, d), dtype=torch.float32,
+                                  device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -133,8 +179,7 @@ def cotaf_state_from_gains(link_gain: torch.Tensor, total_power: float,
         g = g * csi_perturb
     return COTAFState(client_power=ch.water_filling(g, total_power),
                       total_power=total_power,
-                      noise_std=torch.sqrt(torch.as_tensor(
-                          noise_var, dtype=torch.float32, device=dev)),
+                      noise_std=torch.sqrt(f32_scalar(noise_var, dev)),
                       server=s)
 
 
@@ -161,6 +206,35 @@ def cotaf_aggregate(stacked_params, state: COTAFState, noise: torch.Tensor,
     per-channel-use mean square; ``mask``: optional (K,) participation —
     an absent client transmits nothing (the server is forced present,
     :func:`cotaf_participation`)."""
+    A, eff_std = _cotaf_weights(stacked_params, state, normalize, precode,
+                                mask)
+    return _mix(stacked_params, A, eff_std[:, None] * noise)
+
+
+def cotaf_aggregate_batch(stacked_params, state: COTAFState,
+                          noise: torch.Tensor):
+    """:func:`cotaf_aggregate` (normalized, precoded, unmasked) of B
+    stacked trajectories in one launch: ``state`` B states stacked
+    (`repro_torch.core.cwfl.stack_states`), ``noise`` (B, 1, d) unit
+    normals; the weights under ``torch.func.vmap``, each trajectory's
+    precoding from its own clients.  See :func:`_mix_batch`."""
+    B = state.client_power.shape[0]
+    treedef, by_traj = _by_trajectory(stacked_params, B)
+
+    def one(client_power, noise_std, params):
+        st = COTAFState(client_power=client_power,
+                        total_power=state.total_power, noise_std=noise_std)
+        return _cotaf_weights(tree_unflatten(treedef, params), st, True,
+                              True, None)
+
+    A, eff_std = torch.func.vmap(one)(state.client_power, state.noise_std,
+                                      by_traj)
+    return _mix_batch(stacked_params, A, eff_std[..., None] * noise)
+
+
+def _cotaf_weights(stacked_params, state: COTAFState, normalize: bool,
+                   precode: bool, mask: Optional[torch.Tensor]):
+    """COTAF's (1, K) MAC weights and (1,) receiver noise std."""
     p = torch.sqrt(state.client_power / state.total_power)        # (K,)
     part = cotaf_participation(state, mask)
     if part is not None:
@@ -173,7 +247,7 @@ def cotaf_aggregate(stacked_params, state: COTAFState, noise: torch.Tensor,
     if normalize:
         rows = torch.clamp(A.sum(dim=1, keepdim=True), min=1e-12)
         A, eff_std = A / rows, eff_std / rows[:, 0]
-    return _mix(stacked_params, A, eff_std[:, None] * noise)
+    return A, eff_std
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +282,7 @@ def decentralized_state_from_graph(adjacency: torch.Tensor,
     parameters."""
     return DecentralizedState(
         mixing=metropolis_weights(adjacency),
-        noise_std=torch.sqrt(torch.as_tensor(
-            noise_var, dtype=torch.float32, device=adjacency.device)),
+        noise_std=torch.sqrt(f32_scalar(noise_var, adjacency.device)),
         total_power=total_power)
 
 
@@ -229,7 +302,27 @@ def decentralized_aggregate(stacked_params, state: DecentralizedState,
     ṽ ~ N(0, σ²/P), has std sqrt(Σ_{j≠k} W̃(k,j)²)·σ/√P (lemma 2's
     equivalent model).  The consensus is the mean of the K mixed rows."""
     W = state.mixing
+    return _mix(stacked_params, W, _decentralized_std(state)[:, None] * noise)
+
+
+def _decentralized_std(state: DecentralizedState) -> torch.Tensor:
+    """(K,) effective receive-noise std of each node's mix."""
+    W = state.mixing
     off = W * (1.0 - torch.eye(W.shape[0], device=W.device))
-    eff_std = torch.sqrt(torch.sum(off ** 2, dim=1)) * (
+    return torch.sqrt(torch.sum(off ** 2, dim=1)) * (
         state.noise_std / _sqrt32(state.total_power, W.device))
-    return _mix(stacked_params, W, eff_std[:, None] * noise)
+
+
+def decentralized_aggregate_batch(stacked_params, state: DecentralizedState,
+                                  noise: torch.Tensor):
+    """:func:`decentralized_aggregate` of B stacked trajectories in one
+    launch (K rows of weights each): ``state`` B states stacked,
+    ``noise`` (B, K, d) unit normals.  See :func:`_mix_batch`."""
+    def one(mixing, noise_std):
+        return _decentralized_std(DecentralizedState(
+            mixing=mixing, noise_std=noise_std,
+            total_power=state.total_power))
+
+    eff_std = torch.func.vmap(one)(state.mixing, state.noise_std)
+    return _mix_batch(stacked_params, state.mixing,
+                      eff_std[..., None] * noise)

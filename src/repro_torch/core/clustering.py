@@ -26,20 +26,24 @@ class ClusterPlan:
 
     @property
     def num_clusters(self) -> int:
-        return int(self.heads.shape[0])
+        return int(self.heads.shape[-1])
 
 
-def _kmeans(features: torch.Tensor, num_clusters: int, first: int,
+def _kmeans(features: torch.Tensor, num_clusters: int, first,
             iters: int = 50) -> tuple[torch.Tensor, torch.Tensor]:
     """Lloyd K-means with farthest-point initialization from the given
     first centre (JAX draws it with ``randint(key, (), 0, K)``; the caller
-    draws it here, so the reference's pick can be passed in)."""
+    draws it here, so the reference's pick can be passed in).  ``first``
+    is a 0-d int64 tensor (or an int); the picks stay on the device, so a
+    round that re-clusters never waits on the host."""
     C = num_clusters
-    centers = [int(first)]
+    centers = torch.as_tensor(first, dtype=torch.int64,
+                              device=features.device).reshape(1)
     for _ in range(1, C):
         d2 = torch.sum((features[:, None, :] - features[centers][None]) ** 2,
                        dim=-1)
-        centers.append(int(torch.argmax(torch.min(d2, dim=1).values)))
+        pick = torch.argmax(torch.min(d2, dim=1).values)
+        centers = torch.cat([centers, pick.reshape(1)])
     centroids = features[centers]
 
     for _ in range(iters):
@@ -86,7 +90,7 @@ def snr_features(link_snr: torch.Tensor, adjacency: torch.Tensor,
 
 
 def make_cluster_plan(link_snr: torch.Tensor, adjacency: torch.Tensor,
-                      num_clusters: int, first: int,
+                      num_clusters: int, first,
                       kmeans_iters: int = 50) -> ClusterPlan:
     """Full offline clustering: K-means on SNR features → heads → ξ_c."""
     return _plan_from_features(snr_features(link_snr, adjacency), link_snr,
@@ -94,7 +98,7 @@ def make_cluster_plan(link_snr: torch.Tensor, adjacency: torch.Tensor,
 
 
 def _plan_from_features(feats: torch.Tensor, link_snr: torch.Tensor,
-                        num_clusters: int, first: int,
+                        num_clusters: int, first,
                         kmeans_iters: int) -> ClusterPlan:
     """`make_cluster_plan` given the (K, K) features."""
     C = num_clusters

@@ -15,7 +15,10 @@ the phase-1 amplitudes carry eq. (5)'s norm-limiting precoding: the JAX
 package's defaults, the only mode the port runs.  A scenario's
 participation mask and a fault scenario's node-up vector fold into the
 round coefficients (`round_coefficients`), and a fault round runs the
-kernel's guarded variant.  The round's noise
+kernel's guarded variant.  A Monte-Carlo sweep's trajectories run their
+rounds together (:func:`aggregate_batch`): states stacked along a
+leading trajectory axis, their clients stacked beside K, one batched
+launch of the round kernel a round.  The round's noise
 comes in as two ``(C, d)`` matrices of unit normals, which this module
 scales by the phase-1 and phase-2 receiver stds — JAX draws
 ``std[:, None] * normal(key, ...)`` per leaf, so unit normals passed in
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -55,7 +58,7 @@ class CWFLState:
 
     @property
     def num_clients(self) -> int:
-        return int(self.client_power.shape[0])
+        return int(self.client_power.shape[-1])
 
     @property
     def num_clusters(self) -> int:
@@ -99,8 +102,7 @@ def state_from_plan(plan: cl.ClusterPlan, link_gain: torch.Tensor,
         eff_gain = eff_gain * csi_perturb
 
     client_power = ch.water_filling(eff_gain, total_power)
-    sigma = torch.sqrt(torch.tensor(noise_var, dtype=torch.float32,
-                                    device=dev))
+    sigma = torch.sqrt(f32_scalar(noise_var, dev))
     noise_std = torch.full((C,), 1.0, dtype=torch.float32, device=dev) * sigma
     return CWFLState(plan=plan, client_power=client_power,
                      total_power=total_power, head_noise_std=noise_std,
@@ -125,9 +127,18 @@ def precode_scale(state: CWFLState, mean_sq_norm: torch.Tensor
     return torch.where(state.plan.head_mask > 0, 1.0, pre)
 
 
+def f32_scalar(x, device) -> torch.Tensor:
+    """A 0-d f32 tensor of ``x`` on ``device``: a Python number is filled
+    in on the device (no copy from the host, so a captured round may make
+    one), a tensor is cast."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
 def _sqrt32(x: float, device) -> torch.Tensor:
     """sqrt of a Python float in f32, as ``jnp.sqrt(float)`` computes it."""
-    return torch.sqrt(torch.tensor(x, dtype=torch.float32, device=device))
+    return torch.sqrt(f32_scalar(x, device))
 
 
 def phase1_weights(state: CWFLState) -> torch.Tensor:
@@ -245,12 +256,13 @@ def _flat_unpack(new_flat: torch.Tensor, cons_flat: torch.Tensor,
                  leaves, treedef, rows: int):
     """Inverse of :func:`_flat_pack` for the round's two outputs."""
     new_leaves, cons_leaves, off = [], [], 0
+    lead = cons_flat.shape[:-1]   # (B,) for B stacked trajectories
     for x in leaves:
         n = math.prod(x.shape[1:])
         new_leaves.append(new_flat[:, off:off + n].reshape(x.shape)
                           .to(x.dtype))
-        cons_leaves.append(cons_flat[off:off + n].reshape(x.shape[1:])
-                           .to(x.dtype))
+        cons_leaves.append(cons_flat[..., off:off + n]
+                           .reshape(lead + x.shape[1:]).to(x.dtype))
         off += n
     return (tree_unflatten(treedef, new_leaves),
             tree_unflatten(treedef, cons_leaves))
@@ -291,6 +303,98 @@ def aggregate(stacked_params, state: CWFLState, noise,
             raise TypeError(f"the flat round takes f32 leaves, got {x.dtype}")
     return _aggregate_flat(stacked_params, state, noise, mask=mask,
                            alive=alive)
+
+
+def stack_states(states: Sequence):
+    """States of B trajectories (dataclasses of one kind, such as
+    `CWFLState`) as one of the same kind, every tensor stacked along a new
+    leading trajectory axis; nested dataclasses likewise; other fields
+    (the total power) must agree and are kept."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(states))
+    if first is None:
+        return None
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: stack_states([getattr(x, f.name) for x in states])
+            for f in dataclasses.fields(first)})
+    if any(x != first for x in states):
+        raise ValueError(f"trajectories disagree on a shared field: "
+                         f"{[x for x in states]}")
+    return first
+
+
+def _state_leaves(state: CWFLState) -> tuple:
+    """A `CWFLState`'s tensors, for `torch.func.vmap` (which maps tensors
+    and containers of them, not dataclasses)."""
+    p = state.plan
+    return (p.assignment, p.heads, p.membership, p.cluster_snr, p.head_mask,
+            state.client_power, state.head_noise_std,
+            state.consensus_noise_std, state.mix)
+
+
+def _state_of(leaves: tuple, total_power: float) -> CWFLState:
+    """Inverse of :func:`_state_leaves`."""
+    (assignment, heads, membership, cluster_snr, head_mask, client_power,
+     head_std, cons_std, mix) = leaves
+    plan = cl.ClusterPlan(assignment=assignment, heads=heads,
+                          membership=membership, cluster_snr=cluster_snr,
+                          head_mask=head_mask)
+    return CWFLState(plan=plan, client_power=client_power,
+                     total_power=total_power, head_noise_std=head_std,
+                     consensus_noise_std=cons_std, mix=mix)
+
+
+def round_coefficients_batch(state: CWFLState, stacked_params):
+    """:func:`round_coefficients` of B trajectories at once: ``state`` is
+    B states stacked (:func:`stack_states`), ``stacked_params`` a tree of
+    (B·K, ...) leaves, trajectory b's clients at rows b·K .. b·K + K − 1.
+    The O(C·K) arithmetic runs under ``torch.func.vmap``, each
+    trajectory's precoding estimated from its own clients' powers leaf by
+    leaf, as :func:`round_coefficients` does.  Returns the five of
+    :func:`round_coefficients` with a leading B: (B, C, K), (B, C),
+    (B, C, C), (B, C), (B, K, C).  Static rounds only (no mask, no
+    node-up vector)."""
+    leaves, treedef = tree_flatten(stacked_params)
+    B = state.client_power.shape[0]
+    K = leaves[0].shape[0] // B
+    by_traj = [x.reshape((B, K) + x.shape[1:]) for x in leaves]
+
+    def one(fields, params):
+        return round_coefficients(_state_of(fields, state.total_power),
+                                  tree_unflatten(treedef, params))
+
+    return torch.func.vmap(one)(_state_leaves(state), by_traj)
+
+
+def aggregate_batch(stacked_params, state: CWFLState, noise):
+    """One static CWFL sync of B stacked trajectories in one launch of the
+    round kernel.  Returns ``(new_stacked, consensus)``: the tree of
+    (B·K, ...) leaves and the B consensus trees, leaves (B, ...).
+
+    ``stacked_params``: leaves (B·K, ...) f32, trajectory b's clients at
+      rows b·K .. b·K + K − 1.
+    ``state``: the B trajectories' states stacked (:func:`stack_states`):
+      each its own plan (its seed drew K-means' first centre) and noise
+      std (its SNR).
+    ``noise``: ``(unit1, unit2)``, two (B, C, d) unit-normal matrices.
+    """
+    leaves, treedef = tree_flatten(stacked_params)
+    for x in leaves:
+        if x.dtype != torch.float32:
+            raise TypeError(f"the flat round takes f32 leaves, got {x.dtype}")
+    BK = leaves[0].shape[0]
+    B = state.client_power.shape[0]
+    A, eff_std1, Bmix, kappa, m_back = round_coefficients_batch(
+        state, stacked_params)
+    unit1, unit2 = noise
+    flat = _flat_pack(leaves, BK)
+    new_flat, cons_flat = cwfl_round(
+        flat.view(B, BK // B, -1), A, eff_std1[..., None] * unit1, Bmix,
+        kappa[..., None] * unit2, m_back)
+    return _flat_unpack(new_flat.view(BK, -1), cons_flat, leaves, treedef,
+                        BK)
 
 
 def channel_uses_per_round(num_clients: int, num_clusters: int) -> dict:

@@ -25,6 +25,19 @@
 // is masked here; nothing is padded.  wgmma, TMA and wider loads are left
 // to later work.
 //
+// A trajectory axis (the counterpart of jax.vmap over the Pallas call,
+// which gives its grid a leading axis): a launch may run B independent
+// rounds, one per trajectory of a Monte-Carlo sweep, with S, N1, N2, new
+// and cons stacked as (B, K, d), (B, C, d), (B, C, d), (B, K, d) and
+// (B, d) and the weights as (B, C, K), (B, C, C) and (B, K, C).
+// blockIdx.y is the trajectory: each block offsets every pointer to its
+// own trajectory (64-bit offsets) and stages only that trajectory's
+// weights, so the shared memory a block needs does not grow with B.  The
+// offsets are a template flag (Batched): a launch of one trajectory runs
+// the unbatched instantiation, the same code as before the axis existed
+// (with the offsets compiled in, it ran 9-24 % slower on the card:
+// PERF.md), and so the same bits.
+//
 // The guarded variant (fault scenarios) adds two guards and no traffic:
 // every S load that is not finite becomes 0 before its FMA (0 * NaN = NaN,
 // so a zero amplitude cannot contain a poisoned client), and a row c with
@@ -34,8 +47,8 @@
 // the same code as without the flag.
 //
 // Plain C interface, bound with ctypes (src/repro_torch/kernels/cwfl_round.py):
-// each entry point launches on the given stream and returns
-// cudaGetLastError() after the launch.
+// each entry point launches `batch` trajectories (1..65535) on the given
+// stream and returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +76,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int C, bool Guard>
+template <typename T, int C, bool Guard, bool Batched>
 __global__ void __launch_bounds__(kThreads)
     cwfl_round_kernel(const T* __restrict__ s, const float* __restrict__ a,
                       const float* __restrict__ n1,
@@ -71,6 +84,17 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ n2,
                       const float* __restrict__ m, T* __restrict__ out,
                       float* __restrict__ cons, int K, int d) {
+  if constexpr (Batched) {  // this block's trajectory
+    const int64_t traj = blockIdx.y;
+    s += traj * K * d;
+    out += traj * K * d;
+    n1 += traj * C * d;
+    n2 += traj * C * d;
+    cons += traj * d;
+    a += traj * C * K;
+    b += traj * C * C;
+    m += traj * K * C;
+  }
   extern __shared__ float w[];
   float* wa = w;           // (C, K)
   float* wb = wa + C * K;  // (C, C)
@@ -135,9 +159,12 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, bool Guard>
 int launch(const void* s, const void* a, const void* n1, const void* b,
            const void* n2, const void* m, void* out, void* cons, int K,
-           int C, int d, void* stream) {
+           int C, int d, int batch, void* stream) {
+  if (batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * static_cast<size_t>(2 * C * K + C * C);
-  const dim3 grid(static_cast<unsigned>((d + kThreads - 1) / kThreads));
+  const dim3 grid(static_cast<unsigned>((d + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(batch));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* sp = static_cast<const T*>(s);
   const float* ap = static_cast<const float*>(a);
@@ -150,8 +177,13 @@ int launch(const void* s, const void* a, const void* n1, const void* b,
   switch (C) {
 #define CWFL_CASE(CC)                                                   \
   case CC:                                                              \
-    cwfl_round_kernel<T, CC, Guard><<<grid, kThreads, smem, st>>>(      \
-        sp, ap, n1p, bp, n2p, mp, op, cp, K, d);                        \
+    if (batch > 1)                                                      \
+      cwfl_round_kernel<T, CC, Guard, true><<<grid, kThreads, smem, st>>>( \
+          sp, ap, n1p, bp, n2p, mp, op, cp, K, d);                      \
+    else                                                                \
+      cwfl_round_kernel<T, CC, Guard, false><<<grid, kThreads, smem,    \
+                                               st>>>(                   \
+          sp, ap, n1p, bp, n2p, mp, op, cp, K, d);                      \
     break;
     CWFL_CASE(1) CWFL_CASE(2) CWFL_CASE(3) CWFL_CASE(4)
     CWFL_CASE(5) CWFL_CASE(6) CWFL_CASE(7) CWFL_CASE(8)
@@ -171,31 +203,34 @@ extern "C" {
 
 int cwfl_round_f32(const void* s, const void* a, const void* n1,
                    const void* b, const void* n2, const void* m, void* out,
-                   void* cons, int K, int C, int d, void* stream) {
-  return launch<float, false>(s, a, n1, b, n2, m, out, cons, K, C, d,
+                   void* cons, int K, int C, int d, int batch,
+                   void* stream) {
+  return launch<float, false>(s, a, n1, b, n2, m, out, cons, K, C, d, batch,
                               stream);
 }
 
 int cwfl_round_bf16(const void* s, const void* a, const void* n1,
                     const void* b, const void* n2, const void* m, void* out,
-                    void* cons, int K, int C, int d, void* stream) {
+                    void* cons, int K, int C, int d, int batch,
+                    void* stream) {
   return launch<__nv_bfloat16, false>(s, a, n1, b, n2, m, out, cons, K, C,
-                                      d, stream);
+                                      d, batch, stream);
 }
 
 int cwfl_round_guard_f32(const void* s, const void* a, const void* n1,
                          const void* b, const void* n2, const void* m,
                          void* out, void* cons, int K, int C, int d,
-                         void* stream) {
-  return launch<float, true>(s, a, n1, b, n2, m, out, cons, K, C, d, stream);
+                         int batch, void* stream) {
+  return launch<float, true>(s, a, n1, b, n2, m, out, cons, K, C, d, batch,
+                             stream);
 }
 
 int cwfl_round_guard_bf16(const void* s, const void* a, const void* n1,
                           const void* b, const void* n2, const void* m,
                           void* out, void* cons, int K, int C, int d,
-                          void* stream) {
+                          int batch, void* stream) {
   return launch<__nv_bfloat16, true>(s, a, n1, b, n2, m, out, cons, K, C, d,
-                                     stream);
+                                     batch, stream);
 }
 
 }  // extern "C"

@@ -23,7 +23,7 @@
 //
 // Two paths, one launch either way, chosen by ota::make_plan (ota_plan.h,
 // plain C++: the wrapper and the tests read the plan back through
-// ota_aggregate_plan()), which also fixes the ring's shared-memory layout.
+// ota_aggregate_plan_batched()), which also fixes the ring's shared-memory layout.
 // One launch takes any C and K with C x K < 2^31.
 //
 // C <= 8 (with W's C x K floats in a block's shared memory, opted in past
@@ -69,6 +69,20 @@
 //    (realign_rows), N is read shifted once, and y is stored at the widest
 //    width each row's address allows.  The ragged edge is masked; nothing
 //    is padded; element offsets are 64-bit.
+//
+// A trajectory axis (the counterpart of jax.vmap over the Pallas call, which
+// gives its grid a leading axis): one launch may run B independent products,
+// the stacked trajectories of a Monte-Carlo sweep, with S, W, N and y
+// stacked as (B, K, d), (B, C, K), (B, C, d) and (B, C, d).  The grid's y
+// dimension is the trajectory; each block moves its pointers to its own
+// trajectory (64-bit offsets) and runs as at B = 1, so both paths, the
+// ring's layout and its realignment (a trajectory's rows start where its
+// own pointer says) are unchanged.  ota::make_plan divides the ring's
+// persistent grid over the trajectories.  The ring copies rows by their
+// addresses (cp.async.bulk), with no tensor map, so nothing is encoded on
+// the host per trajectory.  The offsets are a template flag (kBatched): a
+// launch of one trajectory runs the unbatched instantiation, the code of
+// the kernel before the axis existed, bit for bit.
 //
 // N is read as f32 or as S's dtype (the JAX tests pass it in S's dtype, the
 // flat phase-1 route in f32); W as f32 or bf16, widened to f32 exactly as
@@ -432,12 +446,20 @@ struct Cursor {
 // 8 or 16 warps a block, at most 128 registers a thread (two blocks of 8
 // warps, or one of 16, an SM), but with R = 8: its 32 sums a lane need
 // more, and it runs one block of 8 warps an SM.
-template <typename T, typename TN, int R, bool kRealign>
+template <typename T, typename TN, int R, bool kRealign, bool kBatched>
 __global__ void __launch_bounds__(R == 8 ? 256 : 512, 1)
     ota_aggregate_kernel(const T* __restrict__ s, const void* __restrict__ w,
                          int w_bf16,
                          const TN* __restrict__ n, T* __restrict__ out, int K,
                          int C, int64_t d, int kc) {
+  if constexpr (kBatched) {  // this block's trajectory
+    const int64_t traj = blockIdx.y;
+    s += traj * K * d;
+    n += traj * C * d;
+    out += traj * C * d;
+    w = static_cast<const unsigned char*>(w) +
+        traj * C * K * (w_bf16 ? 2 : 4);
+  }
   constexpr int V = Vec<T>::V, kTile = Vec<T>::kTile;
   constexpr int kNRow = kTile * sizeof(TN), kNChunks = kNRow / 16 + 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -586,22 +608,25 @@ __global__ void __launch_bounds__(R == 8 ? 256 : 512, 1)
 
 template <typename T, typename TN, int R>
 int launch_r(const T* s, const void* w, int w_bf16, const TN* n, T* out,
-             int K, int C, int64_t d, const ota::Plan& p,
+             int K, int C, int64_t d, int batch, const ota::Plan& p,
              cudaStream_t stream) {
   // Every row of S and N on a 16-byte boundary: nothing to realign.
   const bool aligned = ((reinterpret_cast<uintptr_t>(s) |
                          reinterpret_cast<uintptr_t>(n)) & 15) == 0 &&
                        (d * sizeof(T)) % 16 == 0 && (d * sizeof(TN)) % 16 == 0;
-  auto kernel = aligned ? ota_aggregate_kernel<T, TN, R, false>
-                        : ota_aggregate_kernel<T, TN, R, true>;
+  auto kernel =
+      batch > 1 ? (aligned ? ota_aggregate_kernel<T, TN, R, false, true>
+                           : ota_aggregate_kernel<T, TN, R, true, true>)
+                : (aligned ? ota_aggregate_kernel<T, TN, R, false, false>
+                           : ota_aggregate_kernel<T, TN, R, true, false>);
   if (p.smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(p.smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<p.grid, 32 * p.warps, p.smem_bytes, stream>>>(s, w, w_bf16, n, out,
-                                                          K, C, d, p.kc);
+  kernel<<<dim3(p.grid, batch), 32 * p.warps, p.smem_bytes, stream>>>(
+      s, w, w_bf16, n, out, K, C, d, p.kc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,11 +644,19 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 // memory serves little reuse, and one column a thread streamed faster than
 // the ring and than 16-byte vectors a thread at these shapes (PERF.md,
 // scripts/ota_column_variants.py).
-template <typename T, typename TN, int C>
+template <typename T, typename TN, int C, bool kBatched>
 __global__ void __launch_bounds__(kColumnThreads)
     ota_column_kernel(const T* __restrict__ s, const void* __restrict__ w,
                       int w_bf16, const TN* __restrict__ n,
                       T* __restrict__ out, int K, int64_t d) {
+  if constexpr (kBatched) {  // this block's trajectory
+    const int64_t traj = blockIdx.y;
+    s += traj * K * d;
+    n += traj * C * d;
+    out += traj * C * d;
+    w = static_cast<const unsigned char*>(w) +
+        traj * C * K * (w_bf16 ? 2 : 4);
+  }
   constexpr int kUnroll = 8;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ws = reinterpret_cast<float*>(smem);  // (C, K)
@@ -650,16 +683,18 @@ __global__ void __launch_bounds__(kColumnThreads)
 
 template <typename T, typename TN, int C>
 int launch_column(const T* s, const void* w, int w_bf16, const TN* n, T* out,
-                  int K, int64_t d, const ota::Plan& p, cudaStream_t stream) {
-  auto kernel = ota_column_kernel<T, TN, C>;
+                  int K, int64_t d, int batch, const ota::Plan& p,
+                  cudaStream_t stream) {
+  auto kernel = batch > 1 ? ota_column_kernel<T, TN, C, true>
+                          : ota_column_kernel<T, TN, C, false>;
   if (p.smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(p.smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<p.grid, 32 * p.warps, p.smem_bytes, stream>>>(s, w, w_bf16, n, out,
-                                                          K, d);
+  kernel<<<dim3(p.grid, batch), 32 * p.warps, p.smem_bytes, stream>>>(
+      s, w, w_bf16, n, out, K, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -669,7 +704,7 @@ constexpr int kOutOfRange = -1;
 
 template <typename T, typename TN>
 int launch(const void* s, const void* w, int w_bf16, const void* n,
-           void* out, int K, int C, long long d, void* stream) {
+           void* out, int K, int C, long long d, int batch, void* stream) {
   const T* sp = static_cast<const T*>(s);
   const TN* np = static_cast<const TN*>(n);
   T* op = static_cast<T*>(out);
@@ -680,24 +715,26 @@ int launch(const void* s, const void* w, int w_bf16, const void* n,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   ota::Plan p;
-  if (ota::make_plan(K, C, d, sizeof(T), sizeof(TN), sms, &p))
+  if (ota::make_plan(K, C, d, sizeof(T), sizeof(TN), sms, &p, batch))
     return kOutOfRange;
   if (!p.ring) {
     switch (C) {
 #define OTA_COLUMN(CC) \
   case CC:             \
-    return launch_column<T, TN, CC>(sp, w, w_bf16, np, op, K, d, p, st);
+    return launch_column<T, TN, CC>(sp, w, w_bf16, np, op, K, d, batch, p, \
+                                    st);
       OTA_COLUMN(1) OTA_COLUMN(2) OTA_COLUMN(3) OTA_COLUMN(4)
       OTA_COLUMN(5) OTA_COLUMN(6) OTA_COLUMN(7) OTA_COLUMN(8)
 #undef OTA_COLUMN
     }
   } else if (p.rows == 2) {
-    return launch_r<T, TN, 2>(sp, w, w_bf16, np, op, K, C, d, p, st);
+    return launch_r<T, TN, 2>(sp, w, w_bf16, np, op, K, C, d, batch, p, st);
   } else if (p.rows == 4) {
-    return launch_r<T, TN, 4>(sp, w, w_bf16, np, op, K, C, d, p, st);
+    return launch_r<T, TN, 4>(sp, w, w_bf16, np, op, K, C, d, batch, p, st);
   } else if constexpr (Vec<T>::V == 4) {
     if (p.rows == 8)
-      return launch_r<T, TN, 8>(sp, w, w_bf16, np, op, K, C, d, p, st);
+      return launch_r<T, TN, 8>(sp, w, w_bf16, np, op, K, C, d, batch, p,
+                                st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -706,27 +743,30 @@ int launch(const void* s, const void* w, int w_bf16, const void* n,
 
 extern "C" {
 
-// W is f32, or bf16 when w_bf16 != 0 (widened exactly as it is staged).
+// W is f32, or bf16 when w_bf16 != 0 (widened exactly as it is staged);
+// `batch` trajectories (1..65535) stacked along a leading axis.
 
 // S f32, N f32.
 int ota_aggregate_f32(const void* s, const void* w, int w_bf16, const void* n,
-                      void* out, int K, int C, long long d, void* stream) {
-  return launch<float, float>(s, w, w_bf16, n, out, K, C, d, stream);
+                      void* out, int K, int C, long long d, int batch,
+                      void* stream) {
+  return launch<float, float>(s, w, w_bf16, n, out, K, C, d, batch, stream);
 }
 
 // S bf16, N f32.
 int ota_aggregate_bf16(const void* s, const void* w, int w_bf16,
                        const void* n, void* out, int K, int C, long long d,
-                       void* stream) {
-  return launch<__nv_bfloat16, float>(s, w, w_bf16, n, out, K, C, d, stream);
+                       int batch, void* stream) {
+  return launch<__nv_bfloat16, float>(s, w, w_bf16, n, out, K, C, d, batch,
+                                      stream);
 }
 
 // S bf16, N bf16.
 int ota_aggregate_bf16_bf16noise(const void* s, const void* w, int w_bf16,
                                  const void* n, void* out, int K, int C,
-                                 long long d, void* stream) {
+                                 long long d, int batch, void* stream) {
   return launch<__nv_bfloat16, __nv_bfloat16>(s, w, w_bf16, n, out, K, C, d,
-                                              stream);
+                                              batch, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 // block, grid and shared-memory layout.  Plain C++ (no CUDA), included by
 // ota_aggregate.cu, which launches by it and computes the layout on the
 // device from it; the tests compile this header alone with the host's C++
-// compiler and read the plan back through ota_aggregate_plan().
+// compiler and read the plan back through ota_aggregate_plan_batched().
 #pragma once
 
 #include <cstddef>
@@ -126,6 +126,9 @@ inline bool ring_plan(int K, int C, long long d, int s_bytes, int n_bytes,
   return true;
 }
 
+// The most trajectories one launch takes: the grid's y dimension.
+constexpr int kMaxBatch = 65535;
+
 // The launch for W (C, K) against S (K, d) of s_bytes elements and N of
 // n_bytes on a card of num_sms SMs.  C <= kColumnMaxRows with C x K
 // floats of W in a block's shared memory: the column path.  Otherwise the
@@ -134,9 +137,19 @@ inline bool ring_plan(int K, int C, long long d, int s_bytes, int n_bytes,
 // the shape lies beyond one launch: C x K past 2^31 - 1 (W's elements),
 // more than 2^31 - 1 tiles of d, or a block's walk over its items (tiles
 // x passes x chunks of K) past 2^31 - 1, the kernel's int counters.
+//
+// `batch` independent products (the stacked trajectories of a Monte-Carlo
+// sweep, each with its own S, W and N) run in one launch as the grid's y
+// dimension, each block on its own trajectory; everything per block stays
+// as at batch 1.  The column path's grid is per trajectory as it was; the
+// ring's persistent grid is the resident blocks divided over the
+// trajectories, rounded down (at least one block each), so the launch
+// stays one wave wherever the card holds a block for every trajectory.
+// At batch 1 the plan is the unbatched one.
 inline int make_plan(int K, int C, long long d, int s_bytes, int n_bytes,
-                     int num_sms, Plan* p) {
-  if (K < 1 || C < 1 || d < 1 || num_sms < 1 ||
+                     int num_sms, Plan* p, int batch = 1) {
+  if (K < 1 || C < 1 || d < 1 || num_sms < 1 || batch < 1 ||
+      batch > kMaxBatch ||
       (s_bytes != 4 && s_bytes != 2) || (n_bytes != 4 && n_bytes != 2) ||
       static_cast<long long>(C) * K > INT32_MAX ||
       d / (kRowBytes / s_bytes) >= INT32_MAX)
@@ -162,6 +175,11 @@ inline int make_plan(int K, int C, long long d, int s_bytes, int n_bytes,
         wide.kc == 0 && wide.rows * 16 >= C)
       *p = wide;
   }
+  if (batch > 1) {
+    int share = p->blocks_per_sm * num_sms / batch;
+    if (share < 1) share = 1;
+    p->grid = p->tiles < share ? p->tiles : share;
+  }
   const Layout L = make_layout(K, C, p->rows, p->kc, p->tile * n_bytes,
                                p->warps);
   const long long items = (p->tiles + p->grid - 1LL) / p->grid *
@@ -173,13 +191,16 @@ inline int make_plan(int K, int C, long long d, int s_bytes, int n_bytes,
 
 extern "C" {
 
-// The plan as ten ints: ring, warps, tile, rows, kc, blocks_per_sm, tiles,
-// grid, smem_bytes, and the layout's passes over C (1 when S is
-// resident).  Returns make_plan's status.
-int ota_aggregate_plan(int K, int C, long long d, int s_bytes, int n_bytes,
-                       int num_sms, int* out) {
+// The plan of `batch` trajectories as ten ints: ring, warps, tile, rows,
+// kc, blocks_per_sm, tiles, grid (blocks a trajectory), smem_bytes, and
+// the layout's passes over C (1 when S is resident).  Returns make_plan's
+// status.
+int ota_aggregate_plan_batched(int K, int C, long long d, int s_bytes,
+                               int n_bytes, int num_sms, int batch,
+                               int* out) {
   ota::Plan p;
-  const int err = ota::make_plan(K, C, d, s_bytes, n_bytes, num_sms, &p);
+  const int err = ota::make_plan(K, C, d, s_bytes, n_bytes, num_sms, &p,
+                                 batch);
   if (err) return err;
   const ota::Layout L = ota::make_layout(K, C, p.rows, p.kc, p.tile * n_bytes,
                                          p.warps);

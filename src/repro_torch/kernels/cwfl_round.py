@@ -8,6 +8,11 @@ flat ``(K, d)`` client signals:
     new = M·θ̄             phase 3: error-free broadcast        (K, d)
     consensus = mean_c θ̄                                        (d,)
 
+With a leading trajectory axis on every argument (signals (B, K, d),
+phase1 (B, C, K), and so on) one launch runs the B rounds of a
+Monte-Carlo sweep's stacked trajectories, each with its own weights and
+noise: the counterpart of ``jax.vmap`` over the Pallas call.
+
 ``guard=True`` (fault scenarios) is the guarded variant, the port of
 ``_cwfl_round_kernel_guard``: non-finite signals count as 0, and an Ã row
 with Σ|Ã| = 0 (a dead cluster) forces its θ̃ row, noise included, to 0.
@@ -37,8 +42,9 @@ from repro_torch.kernels.ref import cwfl_round_ref
 SOURCE = Path(__file__).with_name("csrc") / "cwfl_round.cu"
 # The kernel keeps θ̃ and θ̄ of its column in registers, templated on C.
 MAX_CLUSTERS = 16
-# The weights (C·K + C·C + K·C floats) are staged in dynamic shared memory,
-# which a launch gets up to 48 KiB of without an opt-in attribute.
+# A block stages its trajectory's weights (C·K + C·C + K·C floats) in
+# dynamic shared memory, which a launch gets up to 48 KiB of without an
+# opt-in attribute; the bound holds per trajectory, whatever the batch.
 _MAX_SHARED_BYTES = 48 * 1024
 
 #: Kernel launches so far, unguarded and guarded; each raised by one per
@@ -52,19 +58,23 @@ def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     for fn in (lib.cwfl_round_f32, lib.cwfl_round_bf16,
                lib.cwfl_round_guard_f32, lib.cwfl_round_guard_bf16):
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+        # s, a, n1, b, n2, m, out, cons, K, C, d, batch, stream
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check(signals, phase1, noise1, phase2, noise2, broadcast):
-    if signals.ndim != 2:
-        raise ValueError(f"signals must be (K, d), got {tuple(signals.shape)}")
-    K, d = signals.shape
-    C = phase1.shape[0]
+    if signals.ndim not in (2, 3):
+        raise ValueError(f"signals must be (K, d) or (B, K, d), got "
+                         f"{tuple(signals.shape)}")
+    lead = tuple(signals.shape[:-2])
+    K, d = signals.shape[-2:]
+    C = phase1.shape[-2]
     want = {"phase1": (C, K), "noise1": (C, d), "phase2": (C, C),
             "noise2": (C, d), "broadcast": (K, C)}
+    want = {name: lead + shape for name, shape in want.items()}
     got = {"phase1": phase1, "noise1": noise1, "phase2": phase2,
            "noise2": noise2, "broadcast": broadcast}
     for name, shape in want.items():
@@ -95,7 +105,9 @@ def cwfl_round(signals: torch.Tensor, phase1: torch.Tensor,
     noise2:  (C, d) f32 phase-2 equivalent receiver noise.
     broadcast: (K, C) phase-3 downlink matrix (``membership.T``).
     guard:   the guarded variant (non-finite S → 0, dead Ã rows → 0).
-    Returns ``(new (K, d) in signals.dtype, consensus (d,) f32)``.
+    Returns ``(new (K, d) in signals.dtype, consensus (d,) f32)``; with a
+    leading trajectory axis B on every argument, ``(new (B, K, d),
+    consensus (B, d))`` from one launch.
     """
     global launches, launches_guard
     _check(signals, phase1, noise1, phase2, noise2, broadcast)
@@ -105,8 +117,12 @@ def cwfl_round(signals: torch.Tensor, phase1: torch.Tensor,
     if signals.device.type != "cuda":
         raise ValueError(f"cwfl_round runs on CUDA or the CPU, not "
                          f"{signals.device}")
-    K, d = signals.shape
-    C = phase1.shape[0]
+    batch = signals.shape[0] if signals.ndim == 3 else 1
+    K, d = signals.shape[-2:]
+    C = phase1.shape[-2]
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"the kernel takes 1..65535 trajectories, got "
+                         f"{batch}")
     if not 1 <= C <= MAX_CLUSTERS:
         raise ValueError(f"the kernel takes 1..{MAX_CLUSTERS} clusters, "
                          f"got C={C}")
@@ -124,18 +140,20 @@ def cwfl_round(signals: torch.Tensor, phase1: torch.Tensor,
     b = phase2.to(torch.float32).contiguous()
     m = broadcast.to(torch.float32).contiguous()
     new = torch.empty_like(signals)
-    cons = torch.empty(d, dtype=torch.float32, device=signals.device)
+    cons = torch.empty(signals.shape[:-2] + (d,), dtype=torch.float32,
+                       device=signals.device)
     lib = _library()
     fn = getattr(lib, "cwfl_round_" + ("guard_" if guard else "")
                  + ("f32" if signals.dtype == torch.float32 else "bf16"))
     with torch.cuda.device(signals.device):
         err = fn(signals.data_ptr(), a.data_ptr(), noise1.data_ptr(),
                  b.data_ptr(), noise2.data_ptr(), m.data_ptr(),
-                 new.data_ptr(), cons.data_ptr(), K, C, d,
+                 new.data_ptr(), cons.data_ptr(), K, C, d, batch,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"cwfl_round kernel launch failed: CUDA error "
-                           f"{err} (K={K}, C={C}, d={d}, guard={guard})")
+                           f"{err} (B={batch}, K={K}, C={C}, d={d}, "
+                           f"guard={guard})")
     if guard:
         launches_guard += 1
     else:

@@ -22,6 +22,11 @@ for them (where the K x tile block of S fits in shared memory beside W;
 else once for each pass of rows), at any C and K with C·K < 2^31: the
 kernel's ``ota::make_plan`` (``csrc/ota_plan.h``) picks the path and the
 layout, and :func:`launch_plan` reads it back.
+
+With a leading trajectory axis on every argument (signals (B, K, d),
+weights (B, C, K), noise (B, C, d)) one launch computes the B products of
+a Monte-Carlo sweep's stacked trajectories, each with its own weights and
+noise: the counterpart of ``jax.vmap`` over the Pallas call.
 """
 from __future__ import annotations
 
@@ -55,34 +60,37 @@ class LaunchPlan:
     k_chunk: int        # rows of S a stage holds; 0: all K, S resident
     blocks_per_sm: int  # the ring's persistent blocks an SM (0: none)
     tiles: int          # ceil(d / tile)
-    grid: int           # blocks
+    grid: int           # blocks (a trajectory's)
     smem_bytes: int
     passes: int         # passes over C's rows, each streaming S once
+    batch: int = 1      # trajectories, the grid's y dimension
 
 
 def read_plan(lib, K: int, C: int, d: int, dtype: torch.dtype,
-              noise_dtype: torch.dtype, num_sms: int):
+              noise_dtype: torch.dtype, num_sms: int, batch: int = 1):
     """The plan for W (C, K) against S (K, d) of ``dtype`` and N of
-    ``noise_dtype`` on a card of ``num_sms`` SMs, from ``lib``'s
-    ``ota_aggregate_plan`` (the kernel's library, or the plan header built
-    alone); None when the shape lies beyond one launch."""
-    fn = lib.ota_aggregate_plan
+    ``noise_dtype`` on a card of ``num_sms`` SMs, ``batch`` trajectories
+    at once, from ``lib``'s ``ota_aggregate_plan_batched`` (the kernel's
+    library, or the plan header built alone); None when the shape lies
+    beyond one launch."""
+    fn = lib.ota_aggregate_plan_batched
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+                   + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 10)()
-    if fn(K, C, d, dtype.itemsize, noise_dtype.itemsize, num_sms, out):
+    if fn(K, C, d, dtype.itemsize, noise_dtype.itemsize, num_sms, batch,
+          out):
         return None
-    return LaunchPlan(bool(out[0]), *out[1:])
+    return LaunchPlan(bool(out[0]), *out[1:], batch=batch)
 
 
 def launch_plan(K: int, C: int, d: int, dtype: torch.dtype,
-                noise_dtype: torch.dtype, device=None):
+                noise_dtype: torch.dtype, device=None, batch: int = 1):
     """The kernel's plan on ``device`` (a CUDA device; builds the kernel)."""
     index = torch.device(device if device is not None else "cuda").index
     return read_plan(_library(), K, C, d, dtype, noise_dtype,
                      _num_sms(torch.cuda.current_device()
-                              if index is None else index))
+                              if index is None else index), batch)
 
 
 def launch_error(err: int, K: int, C: int, d: int) -> Exception:
@@ -107,24 +115,27 @@ def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     for fn in (lib.ota_aggregate_f32, lib.ota_aggregate_bf16,
                lib.ota_aggregate_bf16_bf16noise):
-        # s, w, w_bf16, n, out, K, C, d, stream
+        # s, w, w_bf16, n, out, K, C, d, batch, stream
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                       + [ctypes.c_longlong, ctypes.c_void_p])
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check(signals, weights, noise):
-    if signals.ndim != 2:
-        raise ValueError(f"signals must be (K, d), got {tuple(signals.shape)}")
-    K, d = signals.shape
-    C = weights.shape[0] if weights.ndim == 2 else -1
-    for name, x, shape in (("weights", weights, (C, K)),
-                           ("noise", noise, (C, d))):
-        if x.ndim != 2 or tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape} for signals {(K, d)} "
-                             f"and weights (C, K), got {tuple(x.shape)}")
+    if signals.ndim not in (2, 3):
+        raise ValueError(f"signals must be (K, d) or (B, K, d), got "
+                         f"{tuple(signals.shape)}")
+    lead = tuple(signals.shape[:-2])
+    K, d = signals.shape[-2:]
+    C = weights.shape[-2] if weights.ndim == signals.ndim else -1
+    for name, x, shape in (("weights", weights, lead + (C, K)),
+                           ("noise", noise, lead + (C, d))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape} for signals "
+                             f"{tuple(signals.shape)} and weights "
+                             f"{lead + ('C', K)}, got {tuple(x.shape)}")
         if x.device != signals.device:
             raise ValueError(f"{name} is on {x.device}, signals on "
                              f"{signals.device}")
@@ -148,7 +159,8 @@ def ota_aggregate(signals: torch.Tensor, weights: torch.Tensor,
     signals: (K, d) f32 or bf16; weights: (C, K), any float type (used as
     f32; f32 and bf16 go to the kernel as they are); noise: (C, d), f32 or
     the signals' dtype.  Returns (C, d) in the
-    signals' dtype.
+    signals' dtype; with a leading trajectory axis B on every argument,
+    (B, C, d) from one launch.
     """
     global launches
     _check(signals, weights, noise)
@@ -160,13 +172,18 @@ def ota_aggregate(signals: torch.Tensor, weights: torch.Tensor,
     for name, x in (("signals", signals), ("noise", noise)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    K, d = signals.shape
-    C = weights.shape[0]
+    batch = signals.shape[0] if signals.ndim == 3 else 1
+    K, d = signals.shape[-2:]
+    C = weights.shape[-2]
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"the kernel takes 1..65535 trajectories, got "
+                         f"{batch}")
     # The kernel widens bf16 weights to f32 as it stages them, as the JAX
     # kernel casts its weight block; other dtypes (O(C·K)) are cast here.
     w_bf16 = weights.dtype == torch.bfloat16
     w = (weights if w_bf16 else weights.to(torch.float32)).contiguous()
-    out = torch.empty((C, d), dtype=signals.dtype, device=signals.device)
+    out = torch.empty(signals.shape[:-2] + (C, d), dtype=signals.dtype,
+                      device=signals.device)
     lib = _library()
     fn = (lib.ota_aggregate_f32 if signals.dtype == torch.float32 else
           lib.ota_aggregate_bf16 if noise.dtype == torch.float32 else
@@ -174,7 +191,7 @@ def ota_aggregate(signals: torch.Tensor, weights: torch.Tensor,
     with torch.cuda.device(signals.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(signals.data_ptr(), w.data_ptr(), int(w_bf16),
-                 noise.data_ptr(), out.data_ptr(), K, C, d, stream)
+                 noise.data_ptr(), out.data_ptr(), K, C, d, batch, stream)
     if err != 0:
         raise launch_error(err, K, C, d)
     launches += 1

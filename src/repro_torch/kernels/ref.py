@@ -15,7 +15,9 @@ def ota_aggregate_ref(signals: torch.Tensor, weights: torch.Tensor,
 
     signals: (K, d) channel-inverted client parameter vectors; weights:
     (C, K) per-(cluster, client) amplitudes (0 for non-members); noise:
-    (C, d) receiver noise.  Returns (C, d) in the signals' dtype."""
+    (C, d) receiver noise.  Returns (C, d) in the signals' dtype.  With a
+    leading trajectory axis — (B, K, d), (B, C, K), (B, C, d) — each of
+    the B products is its own (the batched kernel's plain version)."""
     return (weights.to(torch.float32) @ signals.to(torch.float32)
             + noise.to(torch.float32)).to(signals.dtype)
 
@@ -28,7 +30,10 @@ def cwfl_round_ref(signals: torch.Tensor, phase1: torch.Tensor,
 
     signals: (K, d); phase1: (C, K) Ã; noise1: (C, d); phase2: (C, C) B̃;
     noise2: (C, d); broadcast: (K, C) downlink matrix (membership.T).
-    Returns ``(new (K, d) in signals.dtype, consensus (d,) f32)``.
+    Returns ``(new (K, d) in signals.dtype, consensus (d,) f32)``.  With a
+    leading trajectory axis on every argument — signals (B, K, d) and so
+    on — each of the B rounds is its own, and the outputs are (B, K, d)
+    and (B, d) (the batched kernel's plain version).
 
     ``guard`` (fault scenarios): non-finite signals become 0 before phase
     1 (0 × NaN = NaN, so a zero amplitude cannot contain them), and an Ã
@@ -41,12 +46,12 @@ def cwfl_round_ref(signals: torch.Tensor, phase1: torch.Tensor,
         s = torch.where(torch.isfinite(s), s, 0.0)
     theta_tilde = a @ s + noise1.to(torch.float32)
     if guard:
-        dead = torch.sum(torch.abs(a), dim=1, keepdim=True) <= 0.0
+        dead = torch.sum(torch.abs(a), dim=-1, keepdim=True) <= 0.0
         theta_tilde = torch.where(dead, 0.0, theta_tilde)
     theta_bar = (phase2.to(torch.float32) @ theta_tilde
                  + noise2.to(torch.float32))
     new = (broadcast.to(torch.float32) @ theta_bar).to(signals.dtype)
-    return new, torch.mean(theta_bar, dim=0)
+    return new, torch.mean(theta_bar, dim=-2)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

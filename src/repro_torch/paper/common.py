@@ -63,11 +63,12 @@ def make_dataset(name: str, scale: BenchScale, seed: int, device=None
 def run_setting(name: str, iid: bool, strategy: str, scale: BenchScale, *,
                 num_clusters: int = 3, mu_prox: float = 0.0,
                 seed: int = 0, snr_db: float = 40.0, device=None,
-                progress=None) -> dict:
+                progress=None, mode=None, timers=None) -> dict:
     """One Fig. 2 curve on ``device`` (``None`` = the GPU): data from
     ``seed``, topology from ``seed + 7``, partition from ``seed + 1``, as
     the JAX package seeds its keys.  ``progress(r, loss, acc)``: as
-    `run_federated`'s.  Returns `run_federated`'s history with
+    `run_federated`'s, as are ``mode`` and ``timers``.  Returns
+    `run_federated`'s history with
     ``seconds_per_round`` (wall, over the whole run)."""
     device = resolve_device(device)
     data = make_dataset(name, scale, seed, device=device)
@@ -96,6 +97,7 @@ def run_setting(name: str, iid: bool, strategy: str, scale: BenchScale, *,
     t0 = time.perf_counter()
     h = run_federated(data["init"], apply, loss, topo, xs, ys,
                       data["x_test"], data["y_test"], cfg,
-                      progress=progress, device=device)
+                      progress=progress, device=device, mode=mode,
+                      timers=timers)
     h["seconds_per_round"] = (time.perf_counter() - t0) / scale.rounds
     return h

@@ -20,7 +20,7 @@ the processes decide (`u < p` for a Bernoulli draw) themselves.
 """
 from __future__ import annotations
 
-from typing import Callable, Protocol
+from typing import Any, Callable, NamedTuple, Optional, Protocol
 
 import torch
 
@@ -29,8 +29,8 @@ from repro_torch.sim.processes import ChannelDraws
 
 
 class Draws(Protocol):
-    def kmeans_first(self, num_clients: int) -> int:
-        """K-means' first centre, in [0, num_clients)."""
+    def kmeans_first(self, num_clients: int) -> torch.Tensor:
+        """K-means' first centre, a 0-d int64 tensor in [0, num_clients)."""
 
     def init_params(self, init_fn: Callable) -> dict:
         """The initial (unstacked) params."""
@@ -61,8 +61,9 @@ class Draws(Protocol):
                           num_clients: int) -> torch.Tensor:
         """(K,) uniforms of the schedule's dropout."""
 
-    def recluster_first(self, round_: int, num_clients: int) -> int:
-        """The re-clustering K-means' first centre, in [0, num_clients)."""
+    def recluster_first(self, round_: int, num_clients: int) -> torch.Tensor:
+        """The re-clustering K-means' first centre, a 0-d int64 tensor in
+        [0, num_clients)."""
 
     def fault_uniforms(self, round_: int, num_clients: int) -> FaultDraws:
         """The fault chains' six uniform draws."""
@@ -83,9 +84,9 @@ class TorchDraws:
         self._scenario = torch.Generator(self.device).manual_seed(
             int(torch.randint(2 ** 62, (), generator=seeder)))
 
-    def kmeans_first(self, num_clients: int) -> int:
-        return int(torch.randint(num_clients, (), generator=self._state,
-                                 device=self.device))
+    def kmeans_first(self, num_clients: int) -> torch.Tensor:
+        return torch.randint(num_clients, (), generator=self._state,
+                             device=self.device)
 
     def init_params(self, init_fn: Callable) -> dict:
         return init_fn(self._init)
@@ -131,12 +132,53 @@ class TorchDraws:
                           num_clients: int) -> torch.Tensor:
         return self._uniform(num_clients)
 
-    def recluster_first(self, round_: int, num_clients: int) -> int:
-        return int(torch.randint(num_clients, (), generator=self._scenario,
-                                 device=self.device))
+    def recluster_first(self, round_: int, num_clients: int) -> torch.Tensor:
+        return torch.randint(num_clients, (), generator=self._scenario,
+                             device=self.device)
 
     def fault_uniforms(self, round_: int, num_clients: int) -> FaultDraws:
         K = num_clients
         return FaultDraws(crash=self._uniform(K), recover=self._uniform(K),
                           enter=self._uniform(), leave=self._uniform(),
                           hit=self._uniform(K), fade=self._uniform())
+
+
+class RoundDraws(NamedTuple):
+    """Everything random one round consumes, taken before the round (the
+    counterpart of the JAX engine's per-round ``scan_xs``: ``rkey`` for the
+    local and sync draws, ``skey`` for the scenario's).  A field is
+    ``None`` where the round draws nothing of its kind."""
+
+    idx: torch.Tensor                       # (K, steps, batch) int64
+    noise: Any                              # the strategy's sync noise
+    channel: Optional[ChannelDraws] = None
+    schedule: Optional[torch.Tensor] = None  # (K,) uniforms
+    faults: Optional[FaultDraws] = None
+    csi: Optional[torch.Tensor] = None       # (K,) unit normals
+    recluster: Optional[torch.Tensor] = None  # 0-d int64 first centre
+
+
+def take_round(draws: Draws, t: int, *, strategy, scenario, num_clients: int,
+               steps: int, batch: int, n_k: int, num_clusters: int, d: int,
+               recluster: bool = False) -> RoundDraws:
+    """Round ``t``'s draws, in the order the round consumes them: from the
+    rounds' stream the minibatch indices, then the strategy's sync noise;
+    from the scenario's stream the channel step, the schedule's uniforms,
+    the fault uniforms, the CSI normals and, when ``recluster`` (a round
+    with ``t % recluster_every == 0`` of a strategy with a cluster plan),
+    the re-clustering K-means' first centre.  A kind the scenario does not
+    draw stays ``None``."""
+    K, sc = num_clients, scenario
+    idx = draws.batch_indices(t, K, steps, batch, n_k)
+    noise = strategy.sync_noise(draws, t, K, num_clusters, d)
+    channel = (draws.channel_step(t, K) if sc.channel.evolves_geometry
+               else None)
+    schedule = (None if sc.schedule.is_trivial
+                else draws.schedule_uniforms(t, K))
+    faults = None if sc.faults.is_trivial else draws.fault_uniforms(t, K)
+    csi = (draws.csi_normals(t, K) if strategy.water_fills
+           and sc.channel.csi_error_std > 0 else None)
+    first = draws.recluster_first(t, K) if recluster else None
+    return RoundDraws(idx=idx, noise=noise, channel=channel,
+                      schedule=schedule, faults=faults, csi=csi,
+                      recluster=first)

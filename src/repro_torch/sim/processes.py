@@ -108,7 +108,7 @@ def init_channel(topology: Topology, tcfg: TopologyConfig,
 
 def _ar1(rho: float, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(ρ, sqrt(max(1 − ρ², 0))) in f32."""
-    r = torch.tensor(rho, dtype=torch.float32, device=device)
+    r = torch.full((), rho, dtype=torch.float32, device=device)
     return r, torch.sqrt(torch.clamp(1.0 - r ** 2, min=0.0))
 
 

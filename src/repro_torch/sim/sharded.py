@@ -1,7 +1,15 @@
-"""Client-parallel execution of one trajectory (port of `repro.sim.sharded`,
-its ``shard="clients"`` half).
+"""Device-parallel execution of the engine (port of `repro.sim.sharded`)
+over a ``torch.distributed`` process group, one process a rank.
 
-Within ONE large-K trajectory the stacked client axis is split over the
+* ``monte_carlo_sharded`` (``run_monte_carlo(..., shard="mc")``): the
+  trajectory grid is flattened seed-major, padded up to the group's size
+  by repeating its last entry, and each rank runs its contiguous chunk as
+  one batched sweep (`repro_torch.sim.engine._run_sweep`); the metrics
+  are gathered once at the end.  Trajectories are independent, so the
+  sweep needs no collective before the gather.
+
+* ``run_rounds_client_sharded`` (``run_rounds(..., shard="clients")``):
+  within ONE large-K trajectory the stacked client axis is split over the
 ranks of a ``torch.distributed`` process group, one process a rank: each
 rank trains its K/n clients locally, and the CWFL sync runs as a two-phase
 collective in the mold of
@@ -18,12 +26,12 @@ precoding powers are summed over the flat vector rather than leaf by leaf,
 and the round's products run as plain ``torch.matmul`` (as in JAX, where
 they sit outside any Pallas kernel) rather than the fused round kernel.
 
-JAX's trajectory-parallel Monte-Carlo (``monte_carlo_sharded``,
-``shard="mc"``) waits for ``run_monte_carlo`` (ROADMAP §1 item 4).
+The client-sharded round runs in a loop (``mode="loop"``); its capture
+over NCCL is not ported yet (ROADMAP §1 item 3, what is left).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -32,12 +40,103 @@ from repro_torch.core import cwfl
 from repro_torch.core.topology import Topology
 from repro_torch.models.small import accuracy
 from repro_torch.sim.draws import Draws, TorchDraws
-from repro_torch.sim.engine import _full_f32, _history, _prepare
+from repro_torch.sim.engine import _full_f32, _history, _prepare, _run_sweep
 from repro_torch.sim.scenarios import Scenario, get_scenario
 from repro_torch.strategies import get_strategy
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_size
 
+
+# ---------------------------------------------------------------------------
+# Trajectory-parallel Monte-Carlo (shard="mc").
+# ---------------------------------------------------------------------------
+
+def _pad_to(xs: list, n: int) -> list:
+    """``xs`` padded to length ``n`` by repeating its last entry (the
+    padded trajectories are real but redundant work, sliced off after the
+    gather: a uniform chunk a rank beats a ragged one)."""
+    return list(xs) + [xs[-1]] * max(n - len(xs), 0)
+
+
+def make_sharded_sweep_fn(init_fn: Callable, apply_fn: Callable,
+                          loss_fn: Callable, topology: Topology,
+                          xs: torch.Tensor, ys: torch.Tensor,
+                          x_test: torch.Tensor, y_test: torch.Tensor, cfg,
+                          strategy, n_pad: int, group=None,
+                          draws_of: Optional[Callable] = None, device=None,
+                          timers=None) -> Callable:
+    """The sweep over ``n_pad`` flattened trajectories (a multiple of the
+    group's size): ``f(seed_flat, snr_flat) -> (loss, acc)``, each
+    (n_pad, T) on every rank.  Rank r runs trajectories
+    [r·n_pad/n, (r+1)·n_pad/n) as one batch on ``device`` (the seeds of
+    its chunk drawn by ``draws_of(seed)``, default `TorchDraws`; a seed's
+    trajectories share one `Draws`), then the chunks are gathered."""
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    if n_pad % world:
+        raise ValueError(f"{n_pad} trajectories do not divide over the "
+                         f"{world} ranks of the process group")
+    chunk = n_pad // world
+    device = resolve_device(device)
+
+    def sweep(seed_flat: Sequence[int], snr_flat: Sequence):
+        mine = slice(rank * chunk, (rank + 1) * chunk)
+        seeds = list(dict.fromkeys(seed_flat[mine]))
+        draws = [draws_of(s) if draws_of is not None
+                 else TorchDraws(s, device) for s in seeds]
+        loss, acc = _run_sweep(
+            init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test,
+            cfg, strategy, seeds, [seeds.index(s) for s in seed_flat[mine]],
+            snr_flat[mine], draws, device, timers)
+        out = torch.stack([loss, acc])                    # (2, chunk, T)
+        gathered = [torch.empty_like(out) for _ in range(world)]
+        dist.all_gather(gathered, out, group=group)
+        both = torch.cat(gathered, dim=1)
+        return both[0], both[1]
+
+    return sweep
+
+
+def monte_carlo_sharded(init_fn: Callable, apply_fn: Callable,
+                        loss_fn: Callable, topology: Topology,
+                        xs: torch.Tensor, ys: torch.Tensor,
+                        x_test: torch.Tensor, y_test: torch.Tensor, cfg,
+                        strategy, seeds: Sequence[int],
+                        snr_grid: Optional[Sequence[float]], group=None,
+                        timers=None, draws: Optional[Sequence] = None,
+                        device=None):
+    """The seeds × ``snr_grid`` sweep (``snr_grid`` ``None``: the seeds at
+    ``cfg.snr_db``) split over the ranks of ``group``: flattened
+    seed-major (pair i = (seeds[i // G], grid[i % G]), the order of the
+    unsharded sweep), padded to the group's size, a chunk a rank
+    (:func:`make_sharded_sweep_fn`).  ``draws``: one `Draws` for each of
+    ``seeds``, or ``None``.  Called by every rank; returns ``(loss,
+    acc)``, each (S·G, T), the same on every rank."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "shard='mc' runs over a torch.distributed process group, one "
+            "process a rank: call torch.distributed.init_process_group "
+            "first")
+    world = dist.get_world_size(group)
+    if snr_grid is None:
+        seed_flat, snr_flat = list(seeds), [cfg.snr_db] * len(seeds)
+    else:
+        seed_flat = [s for s in seeds for _ in snr_grid]
+        snr_flat = list(snr_grid) * len(seeds)
+    n = len(seed_flat)
+    n_pad = -(-n // world) * world
+    by_seed = dict(zip(seeds, draws)) if draws is not None else None
+    sweep = make_sharded_sweep_fn(
+        init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test, cfg,
+        strategy, n_pad, group=group,
+        draws_of=None if by_seed is None else by_seed.__getitem__,
+        device=device, timers=timers)
+    loss, acc = sweep(_pad_to(seed_flat, n_pad), _pad_to(snr_flat, n_pad))
+    return loss[:n], acc[:n]
+
+
+# ---------------------------------------------------------------------------
+# Client-parallel execution of one trajectory (shard="clients").
+# ---------------------------------------------------------------------------
 
 def _client_sharded_sync(stacked_local, state: cwfl.CWFLState, noise,
                          group=None):

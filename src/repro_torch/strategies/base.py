@@ -6,15 +6,23 @@ setup (``init``), the per-round rebuild of its state from a channel view
 the draw seam), the sync round (``aggregate``), the receive side of a
 masked round (``receive_mask``), the head-failure handoff
 (``on_head_failure``), re-clustering (``recluster``) and the channel uses
-a round costs (``channel_uses``).  Every front door resolves a strategy by
-name through :func:`get_strategy`.  Capability flags say which executors
-and which scenario hooks apply to a strategy.  JAX's ``telemetry`` hook
-is not ported.
+a round costs (``channel_uses``).  A Monte-Carlo sweep runs its
+trajectories together through the ``*_batch`` hooks (``init_batch``,
+``sync_noise_batch``, ``aggregate_batch``):
+states stacked along a leading trajectory axis, and the trajectories'
+clients stacked beside K.  Every front door resolves a strategy by name
+through :func:`get_strategy`.  Capability flags say which executors and
+which scenario hooks apply to a strategy.  JAX's ``telemetry`` hook is
+not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, ClassVar, Optional
+from typing import Any, ClassVar, Optional, Sequence
+
+import torch
+
+from repro_torch.core.cwfl import stack_states
 
 State = Any   # strategy state (a dataclass of tensors)
 
@@ -79,6 +87,41 @@ class Strategy:
         against dead rows and poisoned signals."""
         raise NotImplementedError
 
+    def init_batch(self, topology, draws: Sequence, cfg,
+                   trajectories: Sequence) -> State:
+        """Offline setup of B trajectories, their states stacked in order:
+        ``trajectories`` holds ``(i, snr_db)`` pairs, trajectory b set up
+        from the seed whose draws are ``draws[i]`` at overall SNR
+        ``snr_db`` (``None`` keeps the topology's noise).  A seed's
+        trajectories share its draws, which are consumed once, as JAX's
+        inner ``vmap`` over the SNR axis shares its keys.  Default:
+        :meth:`init` once a trajectory, for a strategy whose setup draws
+        nothing."""
+        return stack_states([self.init(topology, draws[i], cfg, snr_db=snr)
+                             for i, snr in trajectories])
+
+    def sync_noise_batch(self, draws: Sequence, round_: int,
+                         num_clients: int, num_clusters: int, d: int):
+        """:meth:`sync_noise` of each seed's ``draws``, stacked along a
+        leading seed axis (a seed's SNR points share it)."""
+        noise = [self.sync_noise(dr, round_, num_clients, num_clusters, d)
+                 for dr in draws]
+        if noise[0] is None:
+            return None
+        if isinstance(noise[0], tuple):
+            return tuple(torch.stack(x) for x in zip(*noise))
+        return torch.stack(noise)
+
+    def aggregate_batch(self, stacked_params, state: State, noise):
+        """One static sync of B stacked trajectories: ``stacked_params``
+        leaves (B·K, ...), trajectory b's clients at rows
+        b·K .. b·K + K − 1; ``state`` stacked (:meth:`init_batch`);
+        ``noise`` the :meth:`sync_noise` of each trajectory stacked along
+        a leading B.  Returns ``(new_stacked, consensus)``, the consensus
+        leaves (B, ...)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no batched sync")
+
     def receive_mask(self, state: State, mask, alive=None):
         """(K,) receive-side participation of a masked round: which clients
         adopt the aggregate (1) and which keep their locally-trained params
@@ -98,10 +141,11 @@ class Strategy:
         del state0, view, alive
         return plan
 
-    def recluster(self, view, num_clusters: int, first: int):
+    def recluster(self, view, num_clusters: int, first):
         """A new cluster plan from a channel view; ``first`` is K-means'
-        first centre.  Called every ``Scenario.recluster_every`` rounds,
-        and only if :attr:`reclusters`."""
+        first centre (a 0-d int64 tensor).  Called every
+        ``Scenario.recluster_every`` rounds, and only if
+        :attr:`reclusters`."""
         raise NotImplementedError(
             f"{type(self).__name__} has no cluster plan to rebuild")
 

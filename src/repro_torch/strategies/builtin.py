@@ -19,6 +19,7 @@ import dataclasses
 from typing import ClassVar, Optional
 
 from repro_torch.core import baselines
+from repro_torch.core import channel as ch
 from repro_torch.core import clustering as cl
 from repro_torch.core import cwfl
 from repro_torch.strategies.base import Strategy, register_strategy
@@ -45,6 +46,22 @@ class CWFLStrategy(Strategy):
             state0.plan if plan is None else plan, view.link_gain,
             state0.total_power, noise_var, csi_perturb=csi)
 
+    def init_batch(self, topology, draws, cfg, trajectories):
+        # A seed draws K-means' first centre once; its trajectories share
+        # the plan and differ in their noise budget (`cwfl.setup`'s rule).
+        plans, states = {}, []
+        for i, snr in trajectories:
+            if i not in plans:
+                plans[i] = cl.make_cluster_plan(
+                    topology.link_snr, topology.adjacency, cfg.num_clusters,
+                    draws[i].kmeans_first(topology.num_clients))
+            noise_var = (topology.noise_var if snr is None else
+                         ch.snr_db_to_noise_var(topology.total_power, snr))
+            states.append(cwfl.state_from_plan(
+                plans[i], topology.link_gain, float(topology.total_power),
+                noise_var))
+        return cwfl.stack_states(states)
+
     def sync_noise(self, draws, round_, num_clients, num_clusters, d):
         return draws.phase_noise(round_, num_clusters, d)
 
@@ -53,6 +70,9 @@ class CWFLStrategy(Strategy):
         # A fault round (``alive`` given) runs the guarded kernel.
         return cwfl.aggregate(stacked_params, state, noise, mask=mask,
                               alive=alive)
+
+    def aggregate_batch(self, stacked_params, state, noise):
+        return cwfl.aggregate_batch(stacked_params, state, noise)
 
     def receive_mask(self, state, mask, alive=None):
         # Heads are the phase-1/2 receivers: they keep the aggregate they
@@ -107,6 +127,9 @@ class COTAFStrategy(Strategy):
         return baselines.cotaf_aggregate(stacked_params, state, noise,
                                          mask=mask)
 
+    def aggregate_batch(self, stacked_params, state, noise):
+        return baselines.cotaf_aggregate_batch(stacked_params, state, noise)
+
     def receive_mask(self, state, mask, alive=None):
         # The server holds the aggregate, so it keeps it; failover keeps
         # the server alive whenever any node is.
@@ -137,6 +160,15 @@ class FedAvgStrategy(Strategy):
                   alive=None):
         del state, noise, alive   # dead nodes arrive masked
         return baselines.fedavg_aggregate(stacked_params, weights=mask)
+
+    def init_batch(self, topology, draws, cfg, trajectories):
+        # No state; the count of trajectories is all the sync needs.
+        del topology, draws, cfg
+        return len(trajectories)
+
+    def aggregate_batch(self, stacked_params, state, noise):
+        del noise
+        return baselines.fedavg_aggregate_batch(stacked_params, state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +202,10 @@ class DecentralizedStrategy(Strategy):
         del mask, alive   # already pruned into the Metropolis graph
         return baselines.decentralized_aggregate(stacked_params, state,
                                                  noise)
+
+    def aggregate_batch(self, stacked_params, state, noise):
+        return baselines.decentralized_aggregate_batch(stacked_params,
+                                                       state, noise)
 
     def receive_mask(self, state, mask, alive=None):
         # The mixing matrix holds the absences: no receive fold, and no

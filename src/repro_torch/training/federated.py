@@ -34,18 +34,26 @@ def run_federated(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
                   x_test: torch.Tensor, y_test: torch.Tensor,
                   cfg: FLConfig, progress: Optional[Callable] = None,
                   scenario=None, topo_cfg=None, draws=None,
-                  device=None) -> dict[str, Any]:
+                  device=None, mode: Optional[str] = None,
+                  timers=None) -> dict[str, Any]:
     """Run FL; returns a history dict with per-round test accuracy/loss as
     Python floats.  ``xs, ys``: stacked client shards (K, N_k, ...).
     ``scenario``/``topo_cfg`` opt into the scenario dynamics (a `Scenario`
     or a registered name, and the `TopologyConfig` that made
-    ``topology``).  ``device=None`` runs on the GPU; see
-    `repro_torch.sim.engine.run_rounds` for ``scenario`` and ``draws``."""
+    ``topology``).  ``device=None`` runs on the GPU.  The engine runs the
+    scanned trajectory, or its loop when a live ``progress(r, loss,
+    acc)`` callback is given, as the JAX package's ``run_federated``
+    chooses; ``mode`` ("scan" or "loop") overrides the choice.  See
+    `repro_torch.sim.engine.run_rounds` for ``scenario``, ``draws``,
+    ``mode`` and ``timers``."""
     from repro_torch.sim.engine import run_rounds  # deferred: sim imports training
 
+    if mode is None:
+        mode = "loop" if progress is not None else "scan"
     h = run_rounds(init_fn, apply_fn, loss_fn, topology, xs, ys, x_test,
                    y_test, cfg, scenario=scenario, topo_cfg=topo_cfg,
-                   progress=progress, draws=draws, device=device)
+                   mode=mode, progress=progress, draws=draws, device=device,
+                   timers=timers)
     history = {
         "round": [int(r) for r in h["round"]],
         "train_loss": h["train_loss"].tolist(),

@@ -38,30 +38,36 @@ def fedprox_wrap(loss_fn: Callable, mu_prox: float) -> Callable:
 
 def make_local_runner(loss_fn: Callable, optimizer, batch_size: int,
                       local_steps: int, mu_prox: float = 0.0):
-    """Returns ``run(params, opt_state, x, y, idx) -> (params, opt_state,
-    loss)`` running ``local_steps`` minibatch steps of ``optimizer`` on
-    every client (its ``update`` gets the leaves, as JAX's runner passes
-    the params).
+    """Returns ``run(params, opt_state, x, y, idx, rows=None) -> (params,
+    opt_state, loss)`` running ``local_steps`` minibatch steps of
+    ``optimizer`` on every client (its ``update`` gets the leaves, as JAX's
+    runner passes the params).
 
     ``loss_fn(params, x, y)`` maps K-stacked params and (K, B, ...) inputs
     to (K,) per-client mean losses; ``x``/``y`` are the (K, N_k, ...)
-    client shards; ``idx`` the (K, local_steps, batch_size) minibatch
-    indices into each shard.  ``loss`` is each client's (K,) mean loss
-    over its steps.  ``mu_prox > 0`` trains on :func:`fedprox_wrap`'s
-    objective, anchored at ``params`` as they come in, and reports it.
+    client shards; ``idx`` the (n, local_steps, batch_size) minibatch
+    indices of the n stacked clients, each into its own shard.  ``rows``:
+    the (n,) int64 shard of each stacked client (default: client k trains
+    on shard k), so that the S·K clients of S stacked trajectories read
+    the K shards without copying them.  ``loss`` is each client's (n,)
+    mean loss over its steps.  ``mu_prox > 0`` trains on
+    :func:`fedprox_wrap`'s objective, anchored at ``params`` as they come
+    in, and reports it.
     """
     if mu_prox > 0.0:
         loss_fn = fedprox_wrap(loss_fn, mu_prox)
 
-    def run(params, opt_state, x, y, idx):
-        K = x.shape[0]
-        if tuple(idx.shape) != (K, local_steps, batch_size):
-            raise ValueError(f"idx must be {(K, local_steps, batch_size)}, "
+    def run(params, opt_state, x, y, idx, rows=None):
+        if rows is None:
+            rows = torch.arange(x.shape[0], device=x.device)
+        n = rows.shape[0]
+        if tuple(idx.shape) != (n, local_steps, batch_size):
+            raise ValueError(f"idx must be {(n, local_steps, batch_size)}, "
                              f"got {tuple(idx.shape)}")
         leaves, treedef = tree_flatten(params)
         anchor = ((tree_unflatten(treedef, [p.detach() for p in leaves]),)
                   if mu_prox > 0.0 else ())
-        rows = torch.arange(K, device=x.device)[:, None]
+        rows = rows[:, None]
         losses = []
         for step in range(local_steps):
             batch = idx[:, step]

@@ -25,6 +25,18 @@ def _imports(path: Path):
             yield node.module
 
 
+def test_the_checked_files_cover_every_slice():
+    """The scan covers the modules each slice added, the compiled
+    trajectory's and the sweep's among them."""
+    checked = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"sim/engine.py", "sim/draws.py", "sim/sharded.py",
+            "obs/__init__.py", "obs/profiling.py", "core/cwfl.py",
+            "core/baselines.py", "core/clustering.py", "training/local.py",
+            "strategies/base.py", "strategies/builtin.py",
+            "kernels/cwfl_round.py", "kernels/ota_aggregate.py",
+            "kernels/ref.py"} <= checked
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

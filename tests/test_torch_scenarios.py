@@ -93,8 +93,8 @@ class JaxScenarioDraws(JaxDraws):
         return _t(jax.random.uniform(self.keys[round_][2], (num_clients,)))
 
     def recluster_first(self, round_, num_clients):
-        return int(jax.random.randint(self.keys[round_][3], (), 0,
-                                      num_clients))
+        return torch.tensor(int(jax.random.randint(self.keys[round_][3], (),
+                                                   0, num_clients)))
 
     def fault_uniforms(self, round_, num_clients):
         return _fault_draws(self.keys[round_][4], num_clients)

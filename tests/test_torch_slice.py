@@ -59,7 +59,7 @@ class JaxDraws:
                 for k in jax.random.split(k_agg)))
 
     def kmeans_first(self, num_clients):
-        return self.first
+        return torch.tensor(self.first)
 
     def init_params(self, init_fn):
         return params_from_jax(self.params, device="cpu")
