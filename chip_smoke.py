@@ -37,7 +37,8 @@ Phases, each printed as one JSON object per line:
    causal/window band as its block mask) where there is a softcap,
    ``scaled_dot_product_attention`` where there is none;
 3a. batched — the trajectory axis of ``cwfl_round`` (B = 40 trajectories
-   of the sweep's shape, and its guarded variant) and of ``ota_aggregate``
+   of the sweep's shape, and its guarded variant, both timed) and of
+   ``ota_aggregate``
    (the COTAF sweep's B = 8, C = 1; B = 40; decentralized's C = K = 50 on
    the ring) against their plain versions, every output poisoned with NaN,
    each trajectory bitwise the unbatched launch on its inputs, timed with
@@ -63,7 +64,9 @@ Phases, each printed as one JSON object per line:
    tree route, ``make_fl_plan(50, 3)`` on the card against the CPU; then,
    in an NCCL process group of one rank (a ``file://`` store under
    ``build/``), ``hierarchical_ota_allreduce`` on a one-client plan and
-   ``run_rounds(..., shard="clients")`` against the slice's run;
+   ``run_rounds(..., shard="clients")`` against the slice's run, looped
+   and then scanned (the round's collectives captured in its graph), the
+   scan bitwise the loop;
 7. scenario — the same width under ``head-failure``, ``flaky-clients``,
    ``mobile-fading``, ``cluster-churn`` and ``straggler-heavy``: each
    fault round through the guarded kernel and no other, per-round live
@@ -98,13 +101,25 @@ Phases, each printed as one JSON object per line:
    profiled run of each mode the launches a round, the device's idle
    share and the round kernels' launches counted by the profiler (one a
    round; the wrappers' counters see only the warm-up and the captures);
+   CIFAR's history, with cuDNN held to deterministic algorithms, bitwise
+   loop against loop, scan against scan and scan against loop; then a
+   paper-static run with and without the cuDNN flags, bitwise;
 7e. monte_carlo — ``run_monte_carlo`` of the ``snr-sweep`` grid (8 seeds
    × 5 SNRs, 2,000 stacked clients) at MNIST width, 5 rounds, one batch
-   through the batched ``cwfl_round``: trajectory-rounds/s against the
-   same 40 trajectories run one by one in scan mode, each held to its
-   lone run (JAX's tolerances), the peak memory, the profiled launches;
+   through the batched ``cwfl_round``: trajectory-rounds/s against
+   trajectories run one by one in scan mode (one a seed and an SNR), each
+   held to its lone run (JAX's tolerances), the peak memory, the profiled
+   launches;
    a COTAF sweep (8 seeds, 40 dB) through the batched ``ota_aggregate``;
    ``shard="mc"`` on one NCCL rank against the unsharded sweep;
+7f. dynamic_sweep — ``run_monte_carlo`` under ``head-failure`` (8 seeds ×
+   5 SNRs), ``cluster-churn`` (6 rounds), ``flaky-clients``, COTAF under
+   ``head-failure`` and a dead-cluster scenario (8 seeds each) at MNIST
+   width, each as one batch: trajectory-rounds/s against its lone scanned
+   runs, each element bitwise its lone run (records included), the peak
+   memory, the wrappers' calls against the profiler's launches (the
+   batched guarded ``cwfl_round`` once a round in a fault sweep), and the
+   dead Ã rows each round hands the kernel, counted on the device;
 8. serve — ``greedy_decode`` of Gemma-2 9B at its published width (f32,
    random weights drawn on the card): 2 requests of 4,608-token prompts,
    16 greedy tokens; prefill seconds, decode tokens/s, the kernel's
@@ -131,6 +146,7 @@ the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero; it needs a CUDA device and has no CPU path.
 """
+import contextlib
 import json
 import math
 import os
@@ -158,11 +174,15 @@ BF16_ULP_REL = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
 CARD = []
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
     """One JSON line; a phase's line carries the card's name and power
-    limit beside its numbers."""
+    limit beside its numbers, and the seconds since the script started."""
     if "phase" in obj and CARD:
-        obj = {**obj, "card": CARD[0]}
+        obj = {**obj, "card": CARD[0],
+               "t_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -531,13 +551,16 @@ def ota_kernel_phase(omod, ref_fn):
     return summary
 
 
-def dead_cluster_scenario():
+def dead_cluster_scenario(crash: float = 0.6, recover: float = 0.2):
     """Crashes frequent and recoveries rare enough that whole clusters die
-    (their Ã rows go to 0)."""
+    (their Ã rows go to 0): at K = 8 the defaults; at K = 50, where a
+    cluster has some 17 members, crash 0.9 and recover 0.05 (about one
+    node in twenty up)."""
     from repro_torch.sim import FaultConfig, Scenario
 
     return Scenario(name="dead-cluster",
-                    faults=FaultConfig(crash_prob=0.6, recover_prob=0.2))
+                    faults=FaultConfig(crash_prob=crash,
+                                       recover_prob=recover))
 
 
 def small_workload(device):
@@ -731,14 +754,22 @@ def dist_phase(omod, kmod, static, rounds: int = 5) -> int:
     NCCL process group of one rank: NCCL takes one rank a device, and
     this card is one rank.  In it ``hierarchical_ota_allreduce`` runs on a
     one-client plan (against the same call over a gloo group of the CPU),
-    and ``run_rounds(..., shard="clients")`` reruns the slice's run: its
-    loss and accuracy must agree with the unsharded run within the JAX
-    package's own tolerances (tests/test_sim_sharded.py)."""
+    and ``run_rounds(..., shard="clients")`` reruns the slice's run, in
+    loop mode, then in the default scan (the round and its collectives
+    captured: an eager round, then one CUDA graph a round), timed by
+    `PhaseTimers` and once more under the profiler: the loop's loss and
+    accuracy must agree with the unsharded run within the JAX package's
+    own tolerances (tests/test_sim_sharded.py), the scan's history must
+    equal the loop's bit for bit, and whether it is bitwise the unsharded
+    run's is reported (the sharded sync's products are plain matmuls,
+    not the fused round kernel)."""
     import datetime
 
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import TopologyConfig, cwfl, make_topology
+    from repro_torch.obs import PhaseTimers
     from repro_torch.dist import fl_integration as fl
     from repro_torch.dist import ota_collectives as oc
     from repro_torch.kernels.ops import ota_aggregate_op
@@ -837,11 +868,29 @@ def dist_phase(omod, kmod, static, rounds: int = 5) -> int:
                        progress=lambda *_: stamps.append(time.perf_counter()))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        # The default scan: the round and its collectives captured.
+        scan_timers = PhaseTimers()
+        hs = run_rounds(*workload, cfg, device=DEVICE, shard="clients",
+                        timers=scan_timers)
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with prof:
+            run_rounds(*workload, cfg, device=DEVICE, shard="clients",
+                       timers=PhaseTimers())
+            torch.cuda.synchronize()
+        scan_profile = scan_window(prof, rounds)
+        nccl = sum(c for k, c in scan_profile.pop("by_name").items()
+                   if "nccl" in k.lower())
+        del prof
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+    scan_gap = histories_equal(hs, h)
     loss_s, acc_s = h["train_loss"].tolist(), h["test_acc"].tolist()
     loss_u, acc_u = static["train_loss"], static["test_acc"]
+    unsharded_bitwise = (hs["train_loss"].tolist() == loss_u
+                         and hs["test_acc"].tolist() == acc_u)
     sharded_ok = all(abs(a - b) <= 1e-6 + 1e-5 * abs(b)
                      for a, b in zip(loss_s, loss_u)) and all(
         abs(a - b) <= 1e-2 for a, b in zip(acc_s, acc_u))
@@ -862,7 +911,14 @@ def dist_phase(omod, kmod, static, rounds: int = 5) -> int:
             "sharded_steady_rounds_per_s": (rounds - 1) / (stamps[-1]
                                                            - stamps[0]),
             "sharded_train_loss": loss_s, "unsharded_train_loss": loss_u,
-            "sharded_test_acc": acc_s, "unsharded_test_acc": acc_u}
+            "sharded_test_acc": acc_s, "unsharded_test_acc": acc_u,
+            "sharded_scan_vs_loop": scan_gap,
+            "sharded_scan_bitwise_unsharded": bool(unsharded_bitwise),
+            "sharded_scan_timers": scan_timers.as_dict(),
+            "sharded_scan_steady_rounds_per_s": (
+                (rounds - 1) / scan_timers.seconds["execute"]),
+            "sharded_scan_profiled": scan_profile,
+            "sharded_scan_nccl_kernels_per_round": nccl / (rounds - 1)}
     emit(line)
     if launches != {"ota_aggregate": 2, "cwfl_round": 1}:
         raise AssertionError(f"kernel launches on the dist path {launches}, "
@@ -876,7 +932,8 @@ def dist_phase(omod, kmod, static, rounds: int = 5) -> int:
             and errs["ota_aggregate_op_vs_cpu_rel"] <= 1e-5
             and errs["make_fl_plan_beta_rel"] <= 1e-5
             and errs["make_fl_plan_noise_std_rel"] <= 1e-5
-            and errs["hierarchical_vs_cpu_rel"] <= 1e-6 and sharded_ok):
+            and errs["hierarchical_vs_cpu_rel"] <= 1e-6 and sharded_ok
+            and scan_gap["bitwise"]):
         raise AssertionError(f"the dist phase failed a check: {line}")
     return launches["ota_aggregate"]
 
@@ -1968,8 +2025,9 @@ def batched_kernel_phase(kmod, omod, cwfl_ref, ota_ref):
     on the card, each output poisoned with NaN before its launch: one
     launch computes B rounds, each equal to the unbatched launch on its
     trajectory's inputs, bit for bit (checked at the first, a middle and
-    the last trajectory).  ``cwfl_round`` at the sweep's B = 40 (its
-    guarded variant too, on poisoned inputs, untimed); ``ota_aggregate`` at
+    the last trajectory).  ``cwfl_round`` at the sweep's B = 40, and its
+    guarded variant on poisoned inputs (the dynamic sweeps' fault
+    rounds), each timed; ``ota_aggregate`` at
     the COTAF sweep's B = 8, C = 1, at B = 40 and at decentralized's
     C = K = 50 on the ring (B = 8), with ``torch.baddbmm(N, W, S)``
     (TF32 off) as its one-call yardstick.  Returns the kernels summary's
@@ -2003,35 +2061,34 @@ def batched_kernel_phase(kmod, omod, cwfl_ref, ota_ref):
                 "B": B, "K": K, "C": C, "d": d, "max_abs_err": err,
                 "tol": F32_ATOL, "finite": finite,
                 "bitwise_equal_to_unbatched": bitwise}
-        if not guard:
-            nbytes = B * (kmod.hbm_bytes_model(K, C, d)["fused_bytes"]
-                          + 4 * (2 * C * K + C * C))
-            flops = B * d * (2 * C * K + 2 * C * C + 2 * K * C + 3 * C)
-            launch = lambda: kmod.cwfl_round(*args)   # noqa: E731
-            plain = lambda: cwfl_ref(*args)           # noqa: E731
-            line.update(ms=time_cold(launch, reps=10),
-                        device_ms=device_ms(launch, reps=10),
-                        plain_ms=time_cold(plain, reps=5),
-                        plain_device_ms=device_ms(plain, reps=5),
-                        bytes=nbytes, bound_ms_bytes=nbytes / bw * 1e3,
-                        bound_ms_operations=flops / peak * 1e3)
-            above_bound(name, {k: line[k] for k in (
-                "ms", "device_ms", "plain_ms", "plain_device_ms")},
-                line["bound_ms_bytes"])
-            rows["cwfl"] = {
-                "name": f"cwfl_round[batched S={B}]", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/cwfl_round.cu",
-                "replaces": "src/repro/kernels/cwfl_round.py:42",
-                "launches": None, "max_abs_err": err, "ms": line["ms"],
-                "plain_ms": line["plain_ms"],
-                "bound_ms": max(line["bound_ms_bytes"],
-                                line["bound_ms_operations"]),
-                "bound_by": ("bytes" if line["bound_ms_bytes"]
-                             >= line["bound_ms_operations"]
-                             else "operations"),
-                "library_ms": None, "device_ms": line["device_ms"],
-                "plain_device_ms": line["plain_device_ms"],
-                "shape": {"S": B, "K": K, "C": C, "d": d}}
+        nbytes = B * (kmod.hbm_bytes_model(K, C, d)["fused_bytes"]
+                      + 4 * (2 * C * K + C * C))
+        flops = B * d * (2 * C * K + 2 * C * C + 2 * K * C + 3 * C)
+        launch = lambda: kmod.cwfl_round(*args, guard=guard)   # noqa: E731
+        plain = lambda: cwfl_ref(*args, guard=guard)           # noqa: E731
+        line.update(ms=time_cold(launch, reps=10),
+                    device_ms=device_ms(launch, reps=10),
+                    plain_ms=time_cold(plain, reps=5),
+                    plain_device_ms=device_ms(plain, reps=5),
+                    bytes=nbytes, bound_ms_bytes=nbytes / bw * 1e3,
+                    bound_ms_operations=flops / peak * 1e3)
+        above_bound(f"{name} batched", {k: line[k] for k in (
+            "ms", "device_ms", "plain_ms", "plain_device_ms")},
+            line["bound_ms_bytes"])
+        rows["cwfl_guard" if guard else "cwfl"] = {
+            "name": f"{name}[batched S={B}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cwfl_round.cu",
+            "replaces": ("src/repro/kernels/cwfl_round.py:124" if guard
+                         else "src/repro/kernels/cwfl_round.py:42"),
+            "launches": None, "max_abs_err": err, "ms": line["ms"],
+            "plain_ms": line["plain_ms"],
+            "bound_ms": max(line["bound_ms_bytes"],
+                            line["bound_ms_operations"]),
+            "bound_by": ("bytes" if line["bound_ms_bytes"]
+                         >= line["bound_ms_operations"] else "operations"),
+            "library_ms": None, "device_ms": line["device_ms"],
+            "plain_device_ms": line["plain_device_ms"],
+            "shape": {"S": B, "K": K, "C": C, "d": d}}
         emit(line)
         if not (err <= F32_ATOL and all(bitwise) and (finite or guard)):
             raise AssertionError(f"the batched {name} disagrees with its "
@@ -2112,7 +2169,7 @@ def batched_kernel_phase(kmod, omod, cwfl_ref, ota_ref):
         "bound_ms_c50": max(rows["decentralized"]["bound_ms_bytes"],
                             rows["decentralized"]["bound_ms_operations"]),
         "library_device_ms_c50": rows["decentralized"]["library_device_ms"]}
-    return rows["cwfl"], ota_row
+    return rows["cwfl"], rows["cwfl_guard"], ota_row
 
 
 def histories_equal(a: dict, b: dict) -> dict:
@@ -2349,18 +2406,61 @@ def trajectory_phase(kmod):
         if not fl_gate(gap):
             raise AssertionError(f"{label}: the scan history is off the "
                                  f"loop's: {gap}")
+        # With cuDNN held to deterministic algorithms the CNN's run
+        # replays itself: loop against loop and scan against loop.
+        if cifar and not (gap["bitwise"] and line["loop_vs_loop"]["bitwise"]
+                          and line["scan_vs_scan"]["bitwise"]):
+            raise AssertionError(f"{label}: the CIFAR trajectory does not "
+                                 f"replay itself bit for bit: {line}")
         guarded += every["cwfl_round_guard"]
     return guarded
+
+
+def cudnn_flag_phase(rounds: int = 3) -> None:
+    """The engine's cuDNN flags (deterministic algorithms, no autotuner)
+    change nothing at MNIST width, where no convolution runs: a scanned
+    paper-static run with them equals, bit for bit, the same run with
+    only TF32 turned off."""
+    from repro_torch.sim import engine
+    from repro_torch.training import FLConfig, run_federated
+
+    @contextlib.contextmanager
+    def tf32_off_only():
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+
+    workload = full_width_workload()
+    cfg = FLConfig(rounds=rounds, num_clusters=3, snr_db=40.0, seed=0)
+    with_flags = run_federated(*workload, cfg, device=DEVICE)
+    reference_numerics = engine._reference_numerics
+    engine._reference_numerics = tf32_off_only
+    try:
+        without = run_federated(*workload, cfg, device=DEVICE)
+    finally:
+        engine._reference_numerics = reference_numerics
+    gap = histories_equal(with_flags, without)
+    emit({"phase": "cudnn_flags", "run": "paper-static", "rounds": rounds,
+          "deterministic_vs_not": gap})
+    if not gap["bitwise"]:
+        raise AssertionError(f"the cuDNN flags changed an MNIST run: {gap}")
 
 
 def monte_carlo_phase(kmod, omod):
     """``run_monte_carlo`` at the paper's MNIST width on the card: the
     ``snr-sweep`` grid of MC_SEEDS seeds x 5 SNRs (40 trajectories, 2,000
     stacked clients) with ``cwfl``, MC_ROUNDS rounds, as one batch; its
-    trajectory-rounds/s (rounds 2..T, the ``execute`` phase) against the
-    same 40 trajectories run one by one in scan mode, each of which must
-    agree with its element of the sweep (JAX's tolerances,
-    tests/test_sim_engine.py: loss rtol 2e-5, accuracy atol 1e-2); the
+    trajectory-rounds/s (rounds 2..T, the ``execute`` phase) against
+    trajectories run one by one in scan mode (one for each seed and each
+    SNR), each of which must agree with its element of the sweep (JAX's
+    tolerances, tests/test_sim_engine.py: loss rtol 2e-5, accuracy atol
+    1e-2); the
     peak device memory; one profiled sweep (one launch of the batched
     round kernel a round).  Then a COTAF sweep (MC_SEEDS seeds at 40 dB)
     through the batched ``ota_aggregate``, against its lone runs; and
@@ -2385,6 +2485,7 @@ def monte_carlo_phase(kmod, omod):
         B = MC_SEEDS * len(grid)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        mem_at_start = torch.cuda.memory_allocated()
         timers = PhaseTimers()
         t0 = time.perf_counter()
         h = run_monte_carlo(*workload, cfg, scenario=scenario,
@@ -2411,9 +2512,14 @@ def monte_carlo_phase(kmod, omod):
         repeat_equal = bool(torch.equal(again["train_loss"],
                                         h["train_loss"]))
 
+        # One element per seed and per SNR (seed s at grid point s mod G):
+        # the dynamic_sweep phase holds all 40 of its grid to their lone
+        # runs, and this phase's time goes to it.
+        G = len(grid)
+        checked = [s * G + s % G for s in range(MC_SEEDS)]
         lone_exec, worst = 0.0, {"loss_rel": 0.0, "acc_abs": 0.0}
-        for b in range(B):
-            s, snr = divmod(b, len(grid))
+        for b in checked:
+            s, snr = divmod(b, G)
             lone_timers = PhaseTimers()
             one = run_rounds(*workload, dataclasses.replace(
                 cfg, seed=cfg.seed + s,
@@ -2426,6 +2532,7 @@ def monte_carlo_phase(kmod, omod):
             worst["acc_abs"] = max(worst["acc_abs"], float(
                 (one["test_acc"] - acc[b]).abs().max()))
         traj_rounds = B * (MC_ROUNDS - 1)
+        lone_rounds = len(checked) * (MC_ROUNDS - 1)
         line = {"phase": "monte_carlo", "strategy": strategy,
                 "scenario": scenario or "paper-static", "seeds": MC_SEEDS,
                 "snr_grid": list(grid), "trajectories": B,
@@ -2433,11 +2540,13 @@ def monte_carlo_phase(kmod, omod):
                 "wall_s": wall, "timers": timers.as_dict(),
                 "trajectory_rounds_per_s": traj_rounds
                 / timers.seconds["execute"],
-                "serial_scan_trajectory_rounds_per_s": traj_rounds
+                "serial_scan_trajectory_rounds_per_s": lone_rounds
                 / lone_exec,
-                "peak_mem_bytes": peak, "profiled_sweep": window,
+                "peak_mem_bytes": peak, "mem_at_start_bytes": mem_at_start,
+                "profiled_sweep": window,
                 "profiled_launches_whole_run": every,
-                "wrapper_calls": calls, "vs_lone_runs": worst,
+                "wrapper_calls": calls, "elements_checked": checked,
+                "vs_lone_runs": worst,
                 "tol": {"loss_rel": 2e-5, "acc_abs": 1e-2},
                 "repeat_bitwise": repeat_equal,
                 "final_acc": h["final_acc"].tolist()}
@@ -2482,6 +2591,201 @@ def monte_carlo_phase(kmod, omod):
         raise AssertionError("shard='mc' on one rank disagrees with the "
                              "unsharded sweep")
     return launches
+
+
+# The dynamic sweeps at the paper's MNIST width: label, scenario (None:
+# `dead_cluster_scenario` at K = 50's rates), strategy, rounds, and
+# whether the seeds run over `snr-sweep`'s 5-point grid.  cluster-churn
+# re-clusters at rounds 0 and 5, so its re-clustering graph is replayed
+# once.  Whole clusters of some 17 members die in none of the registered
+# scenarios' rounds at this width (none did on the card), so the
+# dead-cluster sweep hands the batched guarded kernel its dead rows.
+DYNAMIC_SWEEPS = (
+    ("head-failure", "head-failure", "cwfl", 5, True),
+    ("cluster-churn", "cluster-churn", "cwfl", 6, False),
+    ("flaky-clients", "flaky-clients", "cwfl", 5, False),
+    ("cotaf/head-failure", "head-failure", "cotaf", 5, False),
+    ("dead-cluster", None, "cwfl", 5, False),
+)
+
+
+@contextlib.contextmanager
+def dead_rows_on_device(rounds: int, batch: int):
+    """While open, every launch of the round kernel from `repro_torch.core.
+    cwfl` adds the dead Ã rows it is handed (Σ|row| = 0: a cluster whose
+    every member is down), per trajectory, into row r of a (rounds, batch)
+    count on the device, r the launch's index, which the count keeps on
+    the device too.  No host sync: a captured round counts on every
+    replay, as `count_dead_rows` counts a loop's syncs."""
+    from repro_torch.core import cwfl
+
+    launch = cwfl.cwfl_round
+    counts = torch.zeros(rounds, batch, dtype=torch.int64, device=DEVICE)
+    r = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+
+    def counting(signals, phase1, *args, **kwargs):
+        dead = (phase1.abs().sum(dim=-1) <= 0).sum(dim=-1)
+        counts.index_add_(0, r, dead.reshape(1, batch))
+        r.add_(1)
+        return launch(signals, phase1, *args, **kwargs)
+
+    cwfl.cwfl_round = counting
+    try:
+        yield counts
+    finally:
+        cwfl.cwfl_round = launch
+
+
+def dynamic_sweep_phase(kmod, omod) -> dict:
+    """``run_monte_carlo`` under the dynamic scenarios of DYNAMIC_SWEEPS at
+    the paper's MNIST width (K = 50, C = 3, d = 184,214), each as one
+    batch: its trajectory-rounds/s (rounds 2..T, the ``execute`` phase)
+    against the same trajectories run one by one in scan mode, every
+    element against its lone run (bitwise; else the element is named and
+    held to JAX's tolerances, loss 2e-5 relative and accuracy 1e-2), the
+    peak device memory, the wrappers' calls of the FL kernels against the
+    launches the profiler counts over a second run of the sweep (the
+    round kernel once a round: kernel 2 batched in a fault round, kernel 1
+    otherwise, kernel 3 for COTAF), and the dead Ã rows that each round
+    handed the kernel, per trajectory (`dead_rows_on_device`): at least
+    one over the CWFL fault sweeps.  Returns the profiled launches of the
+    batched guarded kernel in the head-failure sweep."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import TopologyConfig
+    from repro_torch.obs import PhaseTimers
+    from repro_torch.sim import get_scenario, run_monte_carlo, run_rounds
+    from repro_torch.training import FLConfig
+
+    workload = full_width_workload()
+    topo_cfg = TopologyConfig(num_clients=50)
+    grid5 = get_scenario("snr-sweep").snr_grid
+    dead_total, guarded = 0, None
+    for label, scenario, strategy, rounds, over_grid in DYNAMIC_SWEEPS:
+        scenario = (get_scenario(scenario) if scenario
+                    else dead_cluster_scenario(crash=0.9, recover=0.05))
+        cfg = FLConfig(strategy=strategy, rounds=rounds, num_clusters=3,
+                       snr_db=40.0, seed=0)
+        grid = list(grid5) if over_grid else None
+        G = len(grid5) if over_grid else 1
+        B = MC_SEEDS * G
+        sweep = lambda timers: run_monte_carlo(   # noqa: E731
+            *workload, cfg, scenario=scenario, topo_cfg=topo_cfg,
+            seeds=MC_SEEDS, snr_grid=grid, timers=timers, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem_at_start = torch.cuda.memory_allocated()
+        timers = PhaseTimers()
+        with dead_rows_on_device(rounds, B) as dead:
+            kmod.launches = kmod.launches_guard = omod.launches = 0
+            t0 = time.perf_counter()
+            h = sweep(timers)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            calls = {"cwfl_round": kmod.launches,
+                     "cwfl_round_guard": kmod.launches_guard,
+                     "ota_aggregate": omod.launches}
+        peak = torch.cuda.max_memory_allocated()
+        dead = dead.cpu()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with prof:
+            again = sweep(PhaseTimers())
+            torch.cuda.synchronize()
+        window, every = scan_window(prof, rounds), profiled_launches(prof)
+        window.pop("by_name")
+        del prof
+        repeat = bool(torch.equal(again["train_loss"], h["train_loss"]))
+        del again
+
+        loss = h["train_loss"].reshape(B, rounds)
+        acc = h["test_acc"].reshape(B, rounds)
+        lead = 2 if grid else 1     # (S[, G], T[, C]) -> (B, T[, C])
+        records = {k: v.reshape((B, rounds) + v.shape[lead + 1:])
+                   for k, v in h["scenario"].items()}
+        lone_exec, differ = 0.0, []
+        worst = {"loss_rel": 0.0, "acc_abs": 0.0}
+        for b in range(B):
+            s, g = divmod(b, G)
+            lone_timers = PhaseTimers()
+            one = run_rounds(*workload, dataclasses.replace(
+                cfg, seed=cfg.seed + s,
+                snr_db=grid[g] if grid else cfg.snr_db),
+                scenario=scenario, topo_cfg=topo_cfg, mode="scan",
+                timers=lone_timers, device=DEVICE)
+            lone_exec += lone_timers.seconds["execute"]
+            same = (torch.equal(one["train_loss"], loss[b])
+                    and torch.equal(one["test_acc"], acc[b])
+                    and all(torch.equal(v, records[k][b])
+                            for k, v in one["scenario"].items()))
+            if not same:
+                differ.append(b)
+            worst["loss_rel"] = max(worst["loss_rel"], float(
+                ((one["train_loss"] - loss[b]).abs()
+                 / one["train_loss"].abs()).max()))
+            worst["acc_abs"] = max(worst["acc_abs"], float(
+                (one["test_acc"] - acc[b]).abs().max()))
+        if strategy == "cwfl":
+            kernel = ("cwfl_round" if scenario.faults.is_trivial
+                      else "cwfl_round_guard")
+        else:
+            kernel = "ota_aggregate"
+        traj_rounds = B * (rounds - 1)
+        line = {"phase": "dynamic_sweep", "run": label,
+                "scenario": scenario.name, "strategy": strategy,
+                "seeds": MC_SEEDS, "snr_grid": grid, "trajectories": B,
+                "stacked_clients": B * 50, "rounds": rounds,
+                "wall_s": wall, "timers": timers.as_dict(),
+                "trajectory_rounds_per_s": traj_rounds
+                / timers.seconds["execute"],
+                "serial_scan_trajectory_rounds_per_s": traj_rounds
+                / lone_exec,
+                "peak_mem_bytes": peak, "mem_at_start_bytes": mem_at_start,
+                "profiled_sweep": window,
+                "profiled_launches_whole_run": every,
+                "wrapper_calls": calls, "kernel": kernel,
+                "elements_bitwise_lone": B - len(differ),
+                "elements_that_differ": differ, "vs_lone_runs": worst,
+                "tol_if_not_bitwise": {"loss_rel": 2e-5, "acc_abs": 1e-2},
+                "repeat_bitwise": repeat,
+                "dead_rows_by_round": dead.sum(dim=1).tolist(),
+                "dead_rows_total": int(dead.sum()),
+                "trajectories_with_a_dead_row": int((dead.sum(0) > 0)
+                                                    .sum()),
+                "records_mean": {k: float(v.float().mean())
+                                 for k, v in records.items()
+                                 if k != "heads"},
+                "final_acc_mean": float(h["final_acc"].mean()),
+                "final_acc_min": float(h["final_acc"].min())}
+        emit(line)
+        if not (worst["loss_rel"] <= 2e-5 and worst["acc_abs"] <= 1e-2):
+            raise AssertionError(f"the {label} sweep disagrees with its "
+                                 f"lone runs: {line}")
+        if every[kernel] != rounds or not calls[kernel] < every[kernel]:
+            raise AssertionError(f"the {label} sweep launched {kernel} "
+                                 f"{every[kernel]} times in {rounds} rounds "
+                                 f"from {calls[kernel]} wrapper calls: "
+                                 f"expected one a round, the replays "
+                                 f"launching all but the warm-up's and the "
+                                 f"captures'")
+        others = {k: v for k, v in every.items() if k != kernel and v}
+        if others:
+            raise AssertionError(f"the {label} sweep launched {others} "
+                                 f"beside {kernel}")
+        if not all(math.isfinite(x) for x in loss.flatten().tolist()):
+            raise AssertionError(f"non-finite sweep loss: {line}")
+        if strategy == "cwfl" and not scenario.faults.is_trivial:
+            dead_total += int(dead.sum())
+        if label == "head-failure":
+            guarded = every["cwfl_round_guard"]
+        del h, loss, acc, records
+        torch.cuda.empty_cache()
+    if dead_total < 1:
+        raise AssertionError("no CWFL fault sweep handed the batched "
+                             "guarded kernel a dead row")
+    return guarded
 
 
 def serial_build_seconds(sources) -> float:
@@ -2567,11 +2871,11 @@ def main() -> None:
     ota_row, ota_c1_row, ota_c50_row, ota_cifar_row = ota_kernel_phase(
         omod, ota_aggregate_ref)
     fa_row, fa_bf16_row = flash_kernel_phase(fa, flash_attention_ref)
-    batched_cwfl_row, batched_ota_row = batched_kernel_phase(
-        kmod, omod, cwfl_round_ref, ota_aggregate_ref)
+    batched_cwfl_row, batched_guard_row, batched_ota_row = \
+        batched_kernel_phase(kmod, omod, cwfl_round_ref, ota_aggregate_ref)
     rows = [cwfl_row, guard_row, ota_row, ota_c1_row, ota_c50_row, fa_row,
             fa_bf16_row, cwfl_cifar_row, cwfl_c4_row, ota_cifar_row,
-            batched_cwfl_row, batched_ota_row]
+            batched_cwfl_row, batched_guard_row, batched_ota_row]
     reference_phase("paper-static")
     reference_phase("flaky-clients", "flaky-clients")
     dead = reference_phase("dead-cluster", dead_cluster_scenario(),
@@ -2596,9 +2900,11 @@ def main() -> None:
     for row in (cwfl_cifar_row, cwfl_c4_row, ota_cifar_row):
         row["launches"] = paper_launches[row["name"]]
     guard_row["launches_scan_profiled"] = trajectory_phase(kmod)
+    cudnn_flag_phase()
     mc_launches = monte_carlo_phase(kmod, omod)
     batched_cwfl_row["launches"] = mc_launches["cwfl"]
     batched_ota_row["launches"] = mc_launches["cotaf"]
+    batched_guard_row["launches"] = dynamic_sweep_phase(kmod, omod)
     fa_row["launches"], params, batch, cfg, gate = serve_phase(fa)
     serve_profile_phase(params, batch, cfg)
     del params

@@ -14,6 +14,9 @@ by each candidate in turn:
   path;
 * ``grouped_nchw``: the same in contiguous NCHW;
 * ``grouped_cudnn_benchmark``: the same with cuDNN's autotuner on;
+* ``grouped_deterministic``: the same held to cuDNN's deterministic
+  algorithms (``torch.backends.cudnn.deterministic``), as the engine's
+  runs are;
 * ``vmap``: ``torch.func.vmap`` of ``F.conv2d`` over the clients;
 * ``im2col_bmm``: ``F.unfold`` and one ``torch.bmm`` over the clients.
 
@@ -25,7 +28,8 @@ reach about 1e-6, TF32's 10-bit mantissa about 1e-3) and the gradients
 within 1e-2 (a ReLU or max-pool tie that rounds the other way in f32
 routes a gradient elsewhere, so every f32 path is about 1e-3 off), and
 its forward + backward step is timed with CUDA events (median of
-``--reps``, after warm-up), TF32 off as the reference demands.  One JSON
+``--reps``, after warm-up), TF32 off as the reference demands.
+``replays_itself``: two steps on the same inputs give the same bits.  One JSON
 line a candidate, then the fastest candidate that is f32-accurate, then
 the card's name and power limit.  Needs a CUDA device.
 """
@@ -100,16 +104,18 @@ def main() -> None:
 
     @contextlib.contextmanager
     def candidate(name):
-        saved = torch.backends.cudnn.benchmark
+        cudnn = torch.backends.cudnn
+        saved = cudnn.benchmark, cudnn.deterministic
         conv = {"vmap": conv_vmap, "im2col_bmm": conv_im2col_bmm,
                 "grouped_nchw": conv_nchw}.get(name, own)
         small._conv_relu_pool = conv
-        torch.backends.cudnn.benchmark = name == "grouped_cudnn_benchmark"
+        cudnn.benchmark = name == "grouped_cudnn_benchmark"
+        cudnn.deterministic = name == "grouped_deterministic"
         try:
             yield
         finally:
             small._conv_relu_pool = own
-            torch.backends.cudnn.benchmark = saved
+            cudnn.benchmark, cudnn.deterministic = saved
 
     flat, treedef = tree_flatten(params)
 
@@ -130,8 +136,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    names = ("grouped", "grouped_nchw", "grouped_cudnn_benchmark", "vmap",
-             "im2col_bmm")
+    names = ("grouped", "grouped_deterministic", "grouped_nchw",
+             "grouped_cudnn_benchmark", "vmap", "im2col_bmm")
     lines = []
     for name in names:
         with candidate(name):
@@ -139,8 +145,9 @@ def main() -> None:
             err = max(float(torch.linalg.vector_norm(g.double() - r)
                             / torch.linalg.vector_norm(r))
                       for g, r in zip(grads, ref_grads))
-            for _ in range(2):
-                step(x)
+            again = step(x)[1]
+            replays = all(torch.equal(a, b) for a, b in zip(grads, again))
+            step(x)
             times = []
             for _ in range(args.reps):
                 start = torch.cuda.Event(enable_timing=True)
@@ -156,6 +163,7 @@ def main() -> None:
                 "step_ms_median": sorted(times)[len(times) // 2],
                 "step_ms_min": min(times), "reps": args.reps,
                 "logp_rel_err": logp_err, "grad_rel_err": err,
+                "replays_itself": replays,
                 "f32_accurate": logp_err <= 1e-5 and err <= 1e-2,
                 "nvidia_smi": smi}
         lines.append(line)

@@ -27,8 +27,9 @@ reproduce its noise exactly.
 A Monte-Carlo sweep's trajectories sync together (the ``*_batch``
 functions): their clients stacked beside K, their states stacked along a
 leading trajectory axis (`repro_torch.core.cwfl.stack_states`), the
-weights computed under ``torch.func.vmap``, and one batched launch of
-the kernel a round for all of them.
+weights computed under ``torch.func.vmap`` (a dynamic scenario's masks
+included), and one batched launch of the kernel a round for all of
+them.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from repro_torch.core.cwfl import (_flat_pack, _flat_unpack, _sqrt32,
                                    f32_scalar, per_client_mean_sq)
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.ota_aggregate import ota_aggregate
+from repro_torch.utils.nest import nest_vmap
 from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
 
@@ -107,16 +109,22 @@ def fedavg_aggregate(stacked_params, weights: Optional[torch.Tensor] = None):
                 torch.zeros((1, d), dtype=torch.float32, device=dev))
 
 
-def fedavg_aggregate_batch(stacked_params, num_trajectories: int):
-    """:func:`fedavg_aggregate` (equal weights) of B stacked trajectories
-    in one launch; see :func:`_mix_batch`."""
+def fedavg_aggregate_batch(stacked_params, num_trajectories: int,
+                           weights: Optional[torch.Tensor] = None):
+    """:func:`fedavg_aggregate` of B stacked trajectories in one launch;
+    ``weights``: (B, K), each row normalized here, or ``None`` (equal
+    weights).  See :func:`_mix_batch`."""
     leaves, _ = tree_flatten(stacked_params)
     B = num_trajectories
     K, d = leaves[0].shape[0] // B, sum(x[0].numel() for x in leaves)
     dev = leaves[0].device
-    weights = torch.full((K,), 1.0 / K, dtype=torch.float32, device=dev)
-    weights = weights / weights.sum()
-    return _mix_batch(stacked_params, weights.expand(B, 1, K),
+    if weights is None:
+        weights = torch.full((K,), 1.0 / K, dtype=torch.float32, device=dev)
+        weights = (weights / weights.sum()).expand(B, K)
+    else:
+        weights = weights.to(torch.float32)
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+    return _mix_batch(stacked_params, weights[:, None, :],
                       torch.zeros((B, 1, d), dtype=torch.float32,
                                   device=dev))
 
@@ -172,7 +180,9 @@ def cotaf_state_from_gains(link_gain: torch.Tensor, total_power: float,
             masked = torch.where(up, mean_gain, -torch.inf)
             server = torch.where(torch.any(up), torch.argmax(masked), server)
     s = torch.as_tensor(server, dtype=torch.int64, device=dev)
-    g = torch.abs(link_gain[:, s]) ** 2 / noise_var
+    # A 1-element index tensor, not a 0-d one: indexing by a 0-d tensor
+    # reads it on the host, which a captured round cannot.
+    g = torch.abs(link_gain[:, s.reshape(1)][:, 0]) ** 2 / noise_var
     # The server's own data arrives locally.
     g = torch.where(torch.arange(g.shape[0], device=dev) == s, torch.max(g), g)
     if csi_perturb is not None:
@@ -212,23 +222,20 @@ def cotaf_aggregate(stacked_params, state: COTAFState, noise: torch.Tensor,
 
 
 def cotaf_aggregate_batch(stacked_params, state: COTAFState,
-                          noise: torch.Tensor):
-    """:func:`cotaf_aggregate` (normalized, precoded, unmasked) of B
-    stacked trajectories in one launch: ``state`` B states stacked
+                          noise: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None):
+    """:func:`cotaf_aggregate` (normalized, precoded) of B stacked
+    trajectories in one launch: ``state`` B states stacked
     (`repro_torch.core.cwfl.stack_states`), ``noise`` (B, 1, d) unit
-    normals; the weights under ``torch.func.vmap``, each trajectory's
-    precoding from its own clients.  See :func:`_mix_batch`."""
+    normals, ``mask`` (B, K) or ``None``; the weights under
+    ``torch.func.vmap``, each trajectory's precoding from its own
+    clients.  See :func:`_mix_batch`."""
     B = state.client_power.shape[0]
     treedef, by_traj = _by_trajectory(stacked_params, B)
-
-    def one(client_power, noise_std, params):
-        st = COTAFState(client_power=client_power,
-                        total_power=state.total_power, noise_std=noise_std)
-        return _cotaf_weights(tree_unflatten(treedef, params), st, True,
-                              True, None)
-
-    A, eff_std = torch.func.vmap(one)(state.client_power, state.noise_std,
-                                      by_traj)
+    A, eff_std = nest_vmap(
+        lambda st, params, m: _cotaf_weights(tree_unflatten(treedef, params),
+                                             st, True, True, m),
+        state, by_traj, mask)
     return _mix_batch(stacked_params, A, eff_std[..., None] * noise)
 
 
@@ -318,11 +325,6 @@ def decentralized_aggregate_batch(stacked_params, state: DecentralizedState,
     """:func:`decentralized_aggregate` of B stacked trajectories in one
     launch (K rows of weights each): ``state`` B states stacked,
     ``noise`` (B, K, d) unit normals.  See :func:`_mix_batch`."""
-    def one(mixing, noise_std):
-        return _decentralized_std(DecentralizedState(
-            mixing=mixing, noise_std=noise_std,
-            total_power=state.total_power))
-
-    eff_std = torch.func.vmap(one)(state.mixing, state.noise_std)
+    eff_std = nest_vmap(_decentralized_std, state)
     return _mix_batch(stacked_params, state.mixing,
                       eff_std[..., None] * noise)

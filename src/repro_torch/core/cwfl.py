@@ -18,9 +18,9 @@ round coefficients (`round_coefficients`), and a fault round runs the
 kernel's guarded variant.  A Monte-Carlo sweep's trajectories run their
 rounds together (:func:`aggregate_batch`): states stacked along a
 leading trajectory axis, their clients stacked beside K, one batched
-launch of the round kernel a round.  The round's noise
-comes in as two ``(C, d)`` matrices of unit normals, which this module
-scales by the phase-1 and phase-2 receiver stds — JAX draws
+launch of the round kernel a round, guarded in a fault round.  The
+round's noise comes in as two ``(C, d)`` matrices of unit normals, which
+this module scales by the phase-1 and phase-2 receiver stds — JAX draws
 ``std[:, None] * normal(key, ...)`` per leaf, so unit normals passed in
 reproduce its noise exactly.
 """
@@ -36,6 +36,7 @@ from repro_torch.core import channel as ch
 from repro_torch.core import clustering as cl
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.cwfl_round import cwfl_round
+from repro_torch.utils.nest import nest_vmap
 from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
 
@@ -325,53 +326,32 @@ def stack_states(states: Sequence):
     return first
 
 
-def _state_leaves(state: CWFLState) -> tuple:
-    """A `CWFLState`'s tensors, for `torch.func.vmap` (which maps tensors
-    and containers of them, not dataclasses)."""
-    p = state.plan
-    return (p.assignment, p.heads, p.membership, p.cluster_snr, p.head_mask,
-            state.client_power, state.head_noise_std,
-            state.consensus_noise_std, state.mix)
-
-
-def _state_of(leaves: tuple, total_power: float) -> CWFLState:
-    """Inverse of :func:`_state_leaves`."""
-    (assignment, heads, membership, cluster_snr, head_mask, client_power,
-     head_std, cons_std, mix) = leaves
-    plan = cl.ClusterPlan(assignment=assignment, heads=heads,
-                          membership=membership, cluster_snr=cluster_snr,
-                          head_mask=head_mask)
-    return CWFLState(plan=plan, client_power=client_power,
-                     total_power=total_power, head_noise_std=head_std,
-                     consensus_noise_std=cons_std, mix=mix)
-
-
-def round_coefficients_batch(state: CWFLState, stacked_params):
+def round_coefficients_batch(state: CWFLState, stacked_params,
+                             mask: Optional[torch.Tensor] = None,
+                             alive: Optional[torch.Tensor] = None):
     """:func:`round_coefficients` of B trajectories at once: ``state`` is
     B states stacked (:func:`stack_states`), ``stacked_params`` a tree of
-    (B·K, ...) leaves, trajectory b's clients at rows b·K .. b·K + K − 1.
-    The O(C·K) arithmetic runs under ``torch.func.vmap``, each
-    trajectory's precoding estimated from its own clients' powers leaf by
-    leaf, as :func:`round_coefficients` does.  Returns the five of
-    :func:`round_coefficients` with a leading B: (B, C, K), (B, C),
-    (B, C, C), (B, C), (B, K, C).  Static rounds only (no mask, no
-    node-up vector)."""
+    (B·K, ...) leaves, trajectory b's clients at rows b·K .. b·K + K − 1,
+    ``mask`` and ``alive`` (B, K) or ``None``.  The O(C·K) arithmetic
+    runs under ``torch.func.vmap``, each trajectory's precoding estimated
+    from its own clients' powers leaf by leaf, as :func:`round_coefficients`
+    does.  Returns the five of :func:`round_coefficients` with a leading
+    B: (B, C, K), (B, C), (B, C, C), (B, C), (B, K, C)."""
     leaves, treedef = tree_flatten(stacked_params)
     B = state.client_power.shape[0]
-    K = leaves[0].shape[0] // B
-    by_traj = [x.reshape((B, K) + x.shape[1:]) for x in leaves]
-
-    def one(fields, params):
-        return round_coefficients(_state_of(fields, state.total_power),
-                                  tree_unflatten(treedef, params))
-
-    return torch.func.vmap(one)(_state_leaves(state), by_traj)
+    by_traj = [x.reshape((B, -1) + x.shape[1:]) for x in leaves]
+    return nest_vmap(
+        lambda st, params, m, a: round_coefficients(
+            st, tree_unflatten(treedef, params), mask=m, alive=a),
+        state, by_traj, mask, alive)
 
 
-def aggregate_batch(stacked_params, state: CWFLState, noise):
-    """One static CWFL sync of B stacked trajectories in one launch of the
-    round kernel.  Returns ``(new_stacked, consensus)``: the tree of
-    (B·K, ...) leaves and the B consensus trees, leaves (B, ...).
+def aggregate_batch(stacked_params, state: CWFLState, noise,
+                    mask: Optional[torch.Tensor] = None,
+                    alive: Optional[torch.Tensor] = None):
+    """One CWFL sync of B stacked trajectories in one launch of the round
+    kernel.  Returns ``(new_stacked, consensus)``: the tree of (B·K, ...)
+    leaves and the B consensus trees, leaves (B, ...).
 
     ``stacked_params``: leaves (B·K, ...) f32, trajectory b's clients at
       rows b·K .. b·K + K − 1.
@@ -379,6 +359,8 @@ def aggregate_batch(stacked_params, state: CWFLState, noise):
       each its own plan (its seed drew K-means' first centre) and noise
       std (its SNR).
     ``noise``: ``(unit1, unit2)``, two (B, C, d) unit-normal matrices.
+    ``mask``, ``alive``: (B, K), as :func:`aggregate`'s for each
+      trajectory; a batch given ``alive`` runs the guarded kernel.
     """
     leaves, treedef = tree_flatten(stacked_params)
     for x in leaves:
@@ -387,12 +369,12 @@ def aggregate_batch(stacked_params, state: CWFLState, noise):
     BK = leaves[0].shape[0]
     B = state.client_power.shape[0]
     A, eff_std1, Bmix, kappa, m_back = round_coefficients_batch(
-        state, stacked_params)
+        state, stacked_params, mask=mask, alive=alive)
     unit1, unit2 = noise
     flat = _flat_pack(leaves, BK)
     new_flat, cons_flat = cwfl_round(
         flat.view(B, BK // B, -1), A, eff_std1[..., None] * unit1, Bmix,
-        kappa[..., None] * unit2, m_back)
+        kappa[..., None] * unit2, m_back, guard=alive is not None)
     return _flat_unpack(new_flat.view(BK, -1), cons_flat, leaves, treedef,
                         BK)
 

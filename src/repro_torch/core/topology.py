@@ -55,11 +55,21 @@ class Topology:
 def pathloss_amplitude(positions: torch.Tensor,
                        cfg: TopologyConfig) -> torch.Tensor:
     """(K, K) amplitude pathloss (d/d0)^{-ς/2} from positions
-    (ε-regularized distance, clamped at d0)."""
-    diff = positions[:, None, :] - positions[None, :, :]
+    (ε-regularized distance, clamped at d0).  Leading axes batch."""
+    diff = positions[..., :, None, :] - positions[..., None, :, :]
     dist = torch.sqrt(torch.sum(diff ** 2, dim=-1) + 1e-9)
     dist = torch.clamp(dist, min=cfg.d0)
-    return (dist / cfg.d0) ** (-cfg.pathloss_exp / 2.0)
+    return pow_f32(dist / cfg.d0, -cfg.pathloss_exp / 2.0)
+
+
+def pow_f32(x: torch.Tensor, exponent) -> torch.Tensor:
+    """``x ** exponent`` of an f32 tensor, taken in f64 and rounded to f32.
+    ATen's CPU ``pow`` rounds otherwise in its vectorized loop than in
+    the scalar loop that finishes a tensor's tail, so in f32 an element's
+    bits would depend on where it sits in the tensor; a stacked sweep's
+    trajectory must get its lone run's bits.  In f64 both loops round to
+    the same f32."""
+    return (x.to(torch.float64) ** exponent).to(torch.float32)
 
 
 def link_stats(link_gain: torch.Tensor, cfg: TopologyConfig):

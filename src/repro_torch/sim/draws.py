@@ -20,12 +20,13 @@ the processes decide (`u < p` for a Bernoulli draw) themselves.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Protocol
+from typing import Any, Callable, NamedTuple, Optional, Protocol, Sequence
 
 import torch
 
 from repro_torch.sim.faults import FaultDraws
 from repro_torch.sim.processes import ChannelDraws
+from repro_torch.utils.nest import nest_stack
 
 
 class Draws(Protocol):
@@ -182,3 +183,10 @@ def take_round(draws: Draws, t: int, *, strategy, scenario, num_clients: int,
     return RoundDraws(idx=idx, noise=noise, channel=channel,
                       schedule=schedule, faults=faults, csi=csi,
                       recluster=first)
+
+
+def take_rounds(draws: Sequence[Draws], t: int, **kwargs) -> RoundDraws:
+    """Round ``t``'s draws of several seeds (a Monte-Carlo sweep's): each
+    seed's :func:`take_round` (``kwargs`` as its), in the loop's order
+    within the seed, stacked along a leading seed axis."""
+    return nest_stack([take_round(dr, t, **kwargs) for dr in draws])

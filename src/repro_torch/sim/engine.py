@@ -42,7 +42,6 @@ Per-round metrics stay on the device until the run ends, unless a
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import warnings
 from typing import Any, Callable, Optional, Sequence, Union
 
@@ -50,10 +49,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.channel import snr_db_to_noise_var
+from repro_torch.core.cwfl import f32_scalar
 from repro_torch.core.topology import Topology, TopologyConfig
 from repro_torch.models.small import accuracy
 from repro_torch.optim import sgd
-from repro_torch.sim.draws import Draws, RoundDraws, TorchDraws, take_round
+from repro_torch.sim.draws import (Draws, RoundDraws, TorchDraws, take_round,
+                                   take_rounds)
 from repro_torch.sim.faults import init_faults, quarantine_mask, step_faults
 from repro_torch.sim.processes import (ChannelView, channel_view,
                                        csi_perturbation, init_channel,
@@ -63,23 +64,31 @@ from repro_torch.sim.scheduling import init_schedule, participation_mask
 from repro_torch.strategies import get_strategy
 from repro_torch.training.local import make_local_runner
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.nest import (nest_map, nest_rebuild, nest_tensors,
+                                    nest_vmap)
 from repro_torch.utils.pytree import (tree_flatten, tree_map, tree_size,
                                       tree_unflatten)
 
 
 @contextlib.contextmanager
-def _full_f32():
-    """TF32 off for the run, the caller's flags back after it: the JAX
-    reference computes in full f32, and TF32 would keep ~3 digits."""
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
+def _reference_numerics():
+    """The run's numerics, the caller's flags back after it: TF32 off (the
+    JAX reference computes in full f32, and TF32 would keep ~3 digits),
+    and cuDNN held to deterministic algorithms without autotuning, so a
+    run replays its own bits as the JAX package's does on one backend
+    (otherwise the CNN's convolution backward sums in an order that
+    varies from run to run)."""
+    cudnn = torch.backends.cudnn
+    flags = (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
+             cudnn.deterministic, cudnn.benchmark)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = flags
+        (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
+         cudnn.deterministic, cudnn.benchmark) = flags
 
 
 def _tree_where(mask: torch.Tensor, a, b):
@@ -90,45 +99,6 @@ def _tree_where(mask: torch.Tensor, a, b):
     return tree_unflatten(treedef, [
         torch.where(mask.reshape((-1,) + (1,) * (x.ndim - 1)) > 0, x, y)
         for x, y in zip(a_leaves, b_leaves)])
-
-
-# ---------------------------------------------------------------------------
-# Carries and draws as flat lists of tensors (the executor's buffers).
-# ---------------------------------------------------------------------------
-
-def _tensors(obj) -> list:
-    """The tensors of a nest of dicts (in key order), tuples, named
-    tuples, lists and dataclasses; anything else is a constant of the
-    nest."""
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if isinstance(obj, dict):
-        return [x for k in sorted(obj) for x in _tensors(obj[k])]
-    if isinstance(obj, (tuple, list)):
-        return [x for v in obj for x in _tensors(v)]
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return [x for f in dataclasses.fields(obj)
-                for x in _tensors(getattr(obj, f.name))]
-    return []
-
-
-def _rebuild(obj, tensors):
-    """``obj`` with its tensors (:func:`_tensors`' order) taken from the
-    iterator ``tensors``."""
-    if isinstance(obj, torch.Tensor):
-        return next(tensors)
-    if isinstance(obj, dict):
-        out = {k: _rebuild(obj[k], tensors) for k in sorted(obj)}
-        return {k: out[k] for k in obj}
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(_rebuild(v, tensors) for v in obj))
-    if isinstance(obj, (tuple, list)):
-        return type(obj)(_rebuild(v, tensors) for v in obj)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{
-            f.name: _rebuild(getattr(obj, f.name), tensors)
-            for f in dataclasses.fields(obj)})
-    return obj
 
 
 def _phase(timers, name: str):
@@ -151,8 +121,8 @@ def _host_syncs_raise():
 
 
 def _on(obj, device):
-    """A nest (:func:`_tensors`) with its tensors on ``device``."""
-    return _rebuild(obj, iter([x.to(device) for x in _tensors(obj)]))
+    """A nest (`repro_torch.utils.nest`) with its tensors on ``device``."""
+    return nest_map(lambda x: x.to(device), obj)
 
 
 class _Replayer:
@@ -181,7 +151,7 @@ class _Replayer:
                  timers=None):
         self.body, self.device, self.timers = body, device, timers
         self.carry = carry0
-        self.bufs = [x.clone() for x in _tensors(carry0)]
+        self.bufs = [x.clone() for x in nest_tensors(carry0)]
         self.graphs: dict = {}
         self.capture = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.capture else None
@@ -192,7 +162,7 @@ class _Replayer:
 
     def state(self):
         """The carry as the buffers hold it now."""
-        return _rebuild(self.carry, iter(self.bufs))
+        return nest_rebuild(self.carry, iter(self.bufs))
 
     def _step(self, draws, t: int) -> dict:
         """One round on the buffers: the body, then its new carry written
@@ -207,7 +177,7 @@ class _Replayer:
                 return x.clone()
             return x
 
-        new_tensors = _tensors(new)
+        new_tensors = nest_tensors(new)
         if len(new_tensors) != len(self.bufs):
             raise RuntimeError(f"the round's carry has {len(new_tensors)} "
                                f"tensors, its buffers {len(self.bufs)}")
@@ -250,14 +220,18 @@ class _Replayer:
                 torch.cuda.synchronize(self.device)
             with self._phase("trace_compile"):
                 inputs = [torch.empty_like(x, device=self.device)
-                          for x in _tensors(draws)]
+                          for x in nest_tensors(draws)]
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=self.stream):
-                    out = self._step(_rebuild(draws, iter(inputs)), t)
+                # Only this thread's calls are checked during the
+                # capture: a process group's watchdog thread (a body with
+                # NCCL collectives) queries its events meanwhile.
+                with torch.cuda.graph(graph, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    out = self._step(nest_rebuild(draws, iter(inputs)), t)
                 self.graphs[key] = (graph, inputs, out)
         with self._phase("execute"):
             graph, inputs, out = self.graphs[key]
-            for buf, x in zip(inputs, _tensors(draws)):
+            for buf, x in zip(inputs, nest_tensors(draws)):
                 buf.copy_(x)
             graph.replay()
             return {k: v.clone() for k, v in out.items()}
@@ -306,43 +280,80 @@ def _history(losses: list, accs: list, consensus) -> dict[str, Any]:
             "avg_acc": torch.mean(acc), "final_acc": acc[-1]}
 
 
+def _noise_var(topology: Topology, snr_db) -> float:
+    """σ² of a run at overall SNR ``snr_db`` (``None``: the topology's)."""
+    return (topology.noise_var if snr_db is None else
+            snr_db_to_noise_var(topology.total_power, snr_db))
+
+
 class _Dynamics:
-    """A dynamic scenario's processes over one trajectory, and its sync
-    (the JAX engine's ``dynamic_sync``).  Each round, in JAX's order: the
-    channel step and its view; the schedule's mask; the fault step
-    (``alive``, transmit outages folded into the mask, quarantine); the CSI
-    error if the strategy water-fills; re-clustering every
-    ``recluster_every`` rounds if it has a cluster plan; the head-failure
-    handoff; the state rebuild; the aggregation; the receive-side fold,
-    unless the strategy's ``receive_mask`` is ``None``.  The processes'
-    states ride in the round's carry (:meth:`carry0`); each round records
-    the live nodes, the mask's mass, the quarantined clients and, for a
-    strategy with a cluster plan, the heads."""
+    """A dynamic scenario's processes and its sync (the JAX engine's
+    ``dynamic_sync``), over one trajectory or, with ``batch`` = B, over B
+    trajectories of a sweep.  Each round, in JAX's order: the channel
+    step and its view; the schedule's mask; the fault step (``alive``,
+    transmit outages folded into the mask, quarantine); the CSI error if
+    the strategy water-fills; re-clustering every ``recluster_every``
+    rounds if it has a cluster plan; the head-failure handoff; the state
+    rebuild; the aggregation; the receive-side fold, unless the
+    strategy's ``receive_mask`` is ``None``.  The processes' states ride
+    in the round's carry (:meth:`carry0`); each round records the live
+    nodes, the mask's mass, the quarantined clients and, for a strategy
+    with a cluster plan, the heads.
+
+    Over B trajectories every process state, draw and record has a
+    leading B, the clients are stacked beside K (rows b·K .. b·K + K − 1,
+    as `_Sweep` stacks them), and each per-trajectory step (the
+    processes, the strategy's hooks) runs once for all B under
+    ``torch.func.vmap`` (`repro_torch.utils.nest.nest_vmap`); the
+    row-wise steps (quarantine, the folds) run on the stacked rows, and
+    the aggregation is the strategy's batched sync, one kernel launch.
+    Each trajectory gets the bits of its lone run.
+
+    ``state0``: the offline state (stacked over B); ``noise_var``: σ² as
+    an f32 tensor, () or (B,); ``channel_init``: the channel process's
+    first-waypoint uniforms, (K, 2) or (B, K, 2), for a scenario whose
+    channel evolves."""
 
     def __init__(self, scenario: Scenario, strategy, topology: Topology,
                  topo_cfg: Optional[TopologyConfig], cfg, state0,
-                 draws: Draws, device):
+                 noise_var: torch.Tensor,
+                 channel_init: Optional[torch.Tensor], device,
+                 batch: Optional[int] = None):
         self.scenario, self.strategy = scenario, strategy
-        self.topology, self.topo_cfg = topology, topo_cfg
-        self.num_clusters = cfg.num_clusters
-        self.state0, self.device = state0, device
+        self.topo_cfg, self.num_clusters = topo_cfg, cfg.num_clusters
+        self.state0, self.noise_var, self.device = state0, noise_var, device
+        self.batch = batch
+        self.lead = () if batch is None else (batch,)
         self.K = K = topology.num_clients
-        self.noise_var = (topology.noise_var if cfg.snr_db is None else
-                          snr_db_to_noise_var(topology.total_power,
-                                              cfg.snr_db))
+        self.view = self._each(ChannelView(
+            link_gain=topology.link_gain, link_snr=topology.link_snr,
+            adjacency=topology.adjacency))
         self._carry0 = {}
         if not scenario.schedule.is_trivial:
-            self._carry0["sched"] = init_schedule(scenario.schedule, K,
-                                                  device)
+            self._carry0["sched"] = self._each(init_schedule(
+                scenario.schedule, K, device))
         if not scenario.faults.is_trivial:
-            self._carry0["faults"] = init_faults(scenario.faults, K, device)
+            self._carry0["faults"] = self._each(init_faults(
+                scenario.faults, K, device))
         if scenario.channel.evolves_geometry:
-            self._carry0["chan"] = init_channel(
-                topology, topo_cfg, draws.channel_init(K).to(device))
+            self._carry0["chan"] = self._map(
+                lambda u: init_channel(topology, topo_cfg, u), channel_init)
         self.reclusters = (strategy.reclusters
                            and scenario.recluster_every > 0)
         if self.reclusters:
             self._carry0["plan"] = state0.plan
+
+    def _each(self, nest):
+        """``nest`` for every trajectory: its tensors with the leading
+        axis, copied."""
+        if self.batch is None:
+            return nest
+        return nest_map(lambda x: x.expand(self.lead + x.shape).clone(),
+                        nest)
+
+    def _map(self, fn: Callable, *args):
+        """``fn`` of one trajectory, over every trajectory."""
+        return fn(*args) if self.batch is None else nest_vmap(fn, *args)
 
     def carry0(self) -> dict:
         """The processes' states before round 0."""
@@ -362,41 +373,44 @@ class _Dynamics:
     def sync(self, t: int, carry: dict, trained, rd: RoundDraws):
         """One sync of round ``t`` on the locally ``trained`` params;
         ``carry`` holds the round's starting params, the last consensus
-        and the processes' states.  Returns ``(new_stacked, consensus,
+        and the processes' states, ``rd`` the round's draws (each
+        trajectory's, over B).  Returns ``(new_stacked, consensus,
         updates, record)``: ``updates`` the processes' new states."""
-        sc, strategy = self.scenario, self.strategy
-        K, dev = self.K, self.device
+        sc, strategy, tcfg = self.scenario, self.strategy, self.topo_cfg
+        K, lead, dev = self.K, self.lead, self.device
         pre_round, consensus = carry["stacked"], carry["consensus"]
         updates = {}
+        view = self.view
         if "chan" in carry:
-            updates["chan"] = step_channel(carry["chan"], sc.channel,
-                                           self.topo_cfg, rd.channel)
-            view = channel_view(updates["chan"], self.topo_cfg)
-        else:
-            view = ChannelView(link_gain=self.topology.link_gain,
-                               link_snr=self.topology.link_snr,
-                               adjacency=self.topology.adjacency)
+            updates["chan"] = self._map(
+                lambda c, u: step_channel(c, sc.channel, tcfg, u),
+                carry["chan"], rd.channel)
+            view = self._map(lambda c: channel_view(c, tcfg),
+                             updates["chan"])
 
         mask = None
         if "sched" in carry:
-            mask, updates["sched"] = participation_mask(
-                sc.schedule, carry["sched"], t, rd.schedule)
+            mask, updates["sched"] = self._map(
+                lambda s, u: participation_mask(sc.schedule, s, t, u),
+                carry["sched"], rd.schedule)
 
         alive = None
-        quarantined = torch.zeros((), device=dev)
+        quarantined = torch.zeros(lead, device=dev)
         if "faults" in carry:
             # Transmit outages fold into the mask; a quarantined client
             # transmits nothing and keeps its pre-round params (0 × NaN =
             # NaN, so masking alone cannot contain a non-finite update).
-            updates["faults"], fview = step_faults(carry["faults"],
-                                                   sc.faults, rd.faults)
+            updates["faults"], fview = self._map(
+                lambda f, u: step_faults(f, sc.faults, u), carry["faults"],
+                rd.faults)
             alive = fview.alive
             mask = fview.tx_ok if mask is None else mask * fview.tx_ok
             if sc.faults.divergence_guard:
                 q = quarantine_mask(trained, sc.faults.quarantine_norm)
                 trained = _tree_where(q, trained, pre_round)
+                q = q.reshape(mask.shape)
                 mask = mask * q
-                quarantined = K - q.sum()
+                quarantined = K - q.sum(dim=-1)
 
         csi = (csi_perturbation(rd.csi, sc.channel.csi_error_std)
                if rd.csi is not None else None)
@@ -404,33 +418,41 @@ class _Dynamics:
         plan = None
         if self.reclusters:
             if self.recluster_round(t):
-                updates["plan"] = strategy.recluster(view, self.num_clusters,
-                                                     rd.recluster)
+                updates["plan"] = self._map(
+                    lambda v, first: strategy.recluster(
+                        v, self.num_clusters, first), view, rd.recluster)
             plan = updates.get("plan", carry["plan"])
         if alive is not None:
-            plan = strategy.on_head_failure(self.state0, plan, view, alive)
+            plan = self._map(strategy.on_head_failure, self.state0, plan,
+                             view, alive)
 
-        state = strategy.state_from_view(self.state0, view, self.noise_var,
-                                         csi=csi, mask=mask, plan=plan,
-                                         alive=alive)
-        new, new_consensus = strategy.aggregate(trained, state, rd.noise,
-                                                mask=mask, alive=alive)
-        recv = (strategy.receive_mask(state, mask, alive=alive)
+        state = self._map(
+            lambda s0, v, nv, c, m, p, a: strategy.state_from_view(
+                s0, v, nv, csi=c, mask=m, plan=p, alive=a),
+            self.state0, view, self.noise_var, csi, mask, plan, alive)
+        aggregate = (strategy.aggregate if self.batch is None
+                     else strategy.aggregate_batch)
+        new, new_consensus = aggregate(trained, state, rd.noise, mask=mask,
+                                       alive=alive)
+        recv = (self._map(lambda s, m, a: strategy.receive_mask(
+                    s, m, alive=a), state, mask, alive)
                 if mask is not None else None)
         if recv is not None:
             # Absent clients keep their locally trained params, receivers
             # forced present keep the aggregate; if nobody took part the
             # sync is skipped and the last consensus stands (which also
-            # discards FedAvg's 0/0 weights) — decided on the device.
-            present = (torch.sum(mask) > 0).to(torch.float32)
-            new = _tree_where(recv * present, new, trained)
-            new_consensus = _tree_where(present[None], new_consensus,
+            # discards FedAvg's 0/0 weights) — decided on the device, for
+            # each trajectory.
+            present = (torch.sum(mask, dim=-1) > 0).to(torch.float32)
+            new = _tree_where((recv * present[..., None]).reshape(-1), new,
+                              trained)
+            new_consensus = _tree_where(present.reshape(-1), new_consensus,
                                         consensus)
 
-        everyone = torch.full((), float(K), device=dev)
-        record = {"alive": torch.sum(alive) if alive is not None
+        everyone = torch.full(lead, float(K), device=dev)
+        record = {"alive": torch.sum(alive, dim=-1) if alive is not None
                   else everyone,
-                  "mask_mass": torch.sum(mask) if mask is not None
+                  "mask_mass": torch.sum(mask, dim=-1) if mask is not None
                   else everyone.clone(),
                   "quarantined": quarantined}
         if strategy.reclusters:
@@ -457,10 +479,13 @@ class _Trajectory:
         self.d = tree_size(consensus)
         self.carry0 = {"stacked": stacked, "opt": optimizer.init(stacked),
                        "consensus": consensus}
-        self.dynamics = (None if scenario.is_static else _Dynamics(
-            scenario, strategy, topology, topo_cfg, cfg, self.state, draws,
-            device))
-        if self.dynamics is not None:
+        self.dynamics = None
+        if not scenario.is_static:
+            self.dynamics = _Dynamics(
+                scenario, strategy, topology, topo_cfg, cfg, self.state,
+                f32_scalar(_noise_var(topology, cfg.snr_db), device),
+                (draws.channel_init(K).to(device)
+                 if scenario.channel.evolves_geometry else None), device)
             self.carry0.update(self.dynamics.carry0())
 
     def key(self, t: int) -> tuple:
@@ -499,12 +524,36 @@ class _Trajectory:
                            **record}
 
 
-def _records(outs: list, static: bool) -> Optional[dict]:
-    """A dynamic run's per-round records, stacked."""
+def _records(outs: list, static: bool, dim: int = 0) -> Optional[dict]:
+    """A dynamic run's per-round records, stacked along ``dim`` (the
+    rounds' axis: 0 for one trajectory, 1 behind a sweep's B)."""
     if static:
         return None
     keys = [k for k in outs[0] if k not in ("loss", "acc")]
-    return {k: torch.stack([o[k] for o in outs]) for k in keys}
+    return {k: torch.stack([o[k] for o in outs], dim=dim) for k in keys}
+
+
+def _resolve(scenario: Union[Scenario, str, None], cfg,
+             topo_cfg: Optional[TopologyConfig]):
+    """``(scenario, strategy)`` of a run, warning when the scenario pins
+    another strategy than ``cfg.strategy`` (which wins, as in JAX)."""
+    if isinstance(scenario, str):
+        scenario = get_scenario(scenario)
+    scenario = scenario or Scenario()
+    strategy = get_strategy(cfg.strategy)
+    if scenario.strategy is not None and scenario.strategy != strategy.name:
+        warnings.warn(
+            f"scenario {scenario.name!r} pins strategy "
+            f"{scenario.strategy!r} but the run uses cfg.strategy="
+            f"{strategy.name!r}; pass FLConfig(strategy="
+            f"{scenario.strategy!r}) to honor the scenario's pin",
+            UserWarning, stacklevel=3)
+    if scenario.channel.evolves_geometry and topo_cfg is None:
+        raise ValueError(
+            "dynamic-channel scenarios need the TopologyConfig that "
+            "generated the topology (geometry statics: area, d0, ς, "
+            "outage threshold)")
+    return scenario, strategy
 
 
 def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
@@ -538,24 +587,14 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
     ``shard="clients"``: split the K clients over the ranks of the
     ``torch.distributed`` process group ``group`` (``None``: the default
     group), one process a rank (`repro_torch.sim.sharded.
-    run_rounds_client_sharded`); static CWFL scenarios, ``mode="loop"``.
+    run_rounds_client_sharded`), in either mode (the scan captures the
+    round's collectives); static CWFL scenarios.
 
     The history holds per-round ``train_loss`` and ``test_acc`` (T,) and the
     final consensus; a dynamic scenario adds ``scenario``: per round, the
     live nodes, the mask's mass, the quarantined clients (T,) and, for a
     strategy with a cluster plan, the heads (T, C).
     """
-    if isinstance(scenario, str):
-        scenario = get_scenario(scenario)
-    scenario = scenario or Scenario()
-    strategy = get_strategy(cfg.strategy)
-    if scenario.strategy is not None and scenario.strategy != strategy.name:
-        warnings.warn(
-            f"scenario {scenario.name!r} pins strategy "
-            f"{scenario.strategy!r} but the run uses cfg.strategy="
-            f"{strategy.name!r}; pass FLConfig(strategy="
-            f"{scenario.strategy!r}) to honor the scenario's pin",
-            UserWarning, stacklevel=2)
     if mode not in ("scan", "loop"):
         raise ValueError(f"mode must be 'scan' or 'loop', got {mode!r}")
     if mode == "scan" and progress is not None:
@@ -568,27 +607,14 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
                 f"run_rounds shards the client axis only (shard='clients'); "
                 f"got {shard!r} — trajectory sharding (shard='mc') lives in "
                 f"run_monte_carlo")
-        if mode != "loop":
-            raise NotImplementedError(
-                "shard='clients' runs its rounds in a loop (mode='loop'): "
-                "capturing the client-sharded round over NCCL is not "
-                "ported yet (ROADMAP §1 item 3, what is left)")
-        if timers is not None:
-            raise NotImplementedError(
-                "timers= on the client-sharded run is not ported yet "
-                "(ROADMAP §1 item 5: observability)")
         from repro_torch.sim import sharded
         return sharded.run_rounds_client_sharded(
             init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test,
             cfg, scenario=scenario, group=group, progress=progress,
-            draws=draws, device=device)
-    if scenario.channel.evolves_geometry and topo_cfg is None:
-        raise ValueError(
-            "dynamic-channel scenarios need the TopologyConfig that "
-            "generated the topology (geometry statics: area, d0, ς, "
-            "outage threshold)")
+            draws=draws, device=device, mode=mode, timers=timers)
+    scenario, strategy = _resolve(scenario, cfg, topo_cfg)
     device = resolve_device(device)
-    with _full_f32():
+    with _reference_numerics():
         traj = _Trajectory(
             init_fn, apply_fn, loss_fn, topology.to(device), xs.to(device),
             ys.to(device), x_test[: cfg.eval_samples].to(device),
@@ -628,32 +654,24 @@ def run_rounds(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
 # A sweep of trajectories, batched.
 # ---------------------------------------------------------------------------
 
-def _gather(x, owner: torch.Tensor):
-    """Each trajectory's rows of per-seed draws (``None``, a tensor or a
-    tuple of them, leading axis the seeds): ``x[owner]``."""
-    if x is None:
-        return None
-    if isinstance(x, tuple):
-        return tuple(_gather(v, owner) for v in x)
-    return x[owner]
-
-
 class _Sweep:
-    """B trajectories of a static scenario run together: trajectory b is
-    seed ``seeds[owner[b]]`` (its draws ``draws[owner[b]]``) at SNR
-    ``snrs[b]``.  Their clients are stacked beside K (B·K rows, b-major,
-    each reading its shard through the local runner's client → shard
-    map), their states along a leading axis (`Strategy.init_batch`), and
-    every round runs one set of launches for all of them: local training,
-    the batched sync (`Strategy.aggregate_batch`), the batched eval.  A
-    seed's trajectories share its draws, as JAX's inner ``vmap`` over the
-    SNR axis shares its keys."""
+    """B trajectories run together: trajectory b is seed
+    ``seeds[owner[b]]`` (its draws ``draws[owner[b]]``) at SNR ``snrs[b]``.
+    Their clients are stacked beside K (B·K rows, b-major, each reading
+    its shard through the local runner's client → shard map), their
+    states along a leading axis (`Strategy.init_batch`), and every round
+    runs one set of launches for all of them: local training, the
+    batched sync (`Strategy.aggregate_batch`; under a dynamic scenario
+    `_Dynamics` over B), the batched eval.  A seed's trajectories share
+    its draws, as JAX's inner ``vmap`` over the SNR axis shares its
+    keys."""
 
     def __init__(self, init_fn, apply_fn, loss_fn, topology, xs, ys, x_ev,
-                 y_ev, cfg, strategy, draws: Sequence[Draws],
-                 owner: Sequence[int], snrs: Sequence, device):
+                 y_ev, cfg, scenario: Scenario, topo_cfg, strategy,
+                 draws: Sequence[Draws], owner: Sequence[int],
+                 snrs: Sequence, device):
         self.apply_fn, self.cfg, self.strategy = apply_fn, cfg, strategy
-        self.draws, self.device = list(draws), device
+        self.scenario, self.draws, self.device = scenario, list(draws), device
         self.xs, self.ys, self.x_ev, self.y_ev = xs, ys, x_ev, y_ev
         self.K, self.n_k = K, n_k = xs.shape[0], xs.shape[1]
         self.B = B = len(owner)
@@ -678,44 +696,68 @@ class _Sweep:
         self.rows = torch.arange(K, device=device).repeat(B)
         self.carry0 = {"stacked": stacked, "opt": optimizer.init(stacked),
                        "consensus": consensus}
+        self.dynamics = None
+        if not scenario.is_static:
+            channel_init = None
+            if scenario.channel.evolves_geometry:
+                channel_init = torch.stack([dr.channel_init(K).to(device)
+                                            for dr in self.draws])[
+                                                self.owner]
+            self.dynamics = _Dynamics(
+                scenario, strategy, topology, topo_cfg, cfg, self.state,
+                torch.stack([f32_scalar(_noise_var(topology, snr), device)
+                             for snr in snrs]), channel_init, device,
+                batch=B)
+            self.carry0.update(self.dynamics.carry0())
+
+    def key(self, t: int) -> tuple:
+        return () if self.dynamics is None else self.dynamics.key(t)
 
     def round_draws(self, t: int) -> RoundDraws:
         """Round ``t``'s draws of every seed, stacked along a leading seed
-        axis, on the run's device."""
+        axis (`repro_torch.sim.draws.take_rounds`), on the run's device."""
         cfg = self.cfg
-        idx = torch.stack([dr.batch_indices(t, self.K, self.steps,
-                                            cfg.batch_size, self.n_k)
-                           for dr in self.draws])
-        noise = self.strategy.sync_noise_batch(self.draws, t, self.K,
-                                               cfg.num_clusters, self.d)
-        return _on(RoundDraws(idx=idx, noise=noise), self.device)
+        return _on(take_rounds(
+            self.draws, t, strategy=self.strategy, scenario=self.scenario,
+            num_clients=self.K, steps=self.steps, batch=cfg.batch_size,
+            n_k=self.n_k, num_clusters=cfg.num_clusters, d=self.d,
+            recluster=(self.dynamics is not None
+                       and self.dynamics.recluster_round(t))), self.device)
 
     def body(self, carry: dict, rd: RoundDraws, t: int):
         """One round of the B trajectories."""
-        del t
         B, K = self.B, self.K
-        idx = _gather(rd.idx, self.owner).reshape((B * K,)
-                                                  + rd.idx.shape[2:])
+        rd = nest_map(lambda x: x[self.owner], rd)   # each trajectory's
+        idx = rd.idx.reshape((B * K,) + rd.idx.shape[2:])
         trained, opt_state, client_loss = self.local_run(
             carry["stacked"], carry["opt"], self.xs, self.ys, idx, self.rows)
+        new_carry = dict(carry, opt=opt_state)
         with torch.no_grad():
-            stacked, consensus = self.strategy.aggregate_batch(
-                trained, self.state, _gather(rd.noise, self.owner))
+            if self.dynamics is None:
+                stacked, consensus = self.strategy.aggregate_batch(
+                    trained, self.state, rd.noise)
+                record = {}
+            else:
+                stacked, consensus, updates, record = self.dynamics.sync(
+                    t, carry, trained, rd)
+                new_carry.update(updates)
             x_ev = self.x_ev.expand((B,) + self.x_ev.shape)
             acc = accuracy(self.apply_fn(consensus, x_ev), self.y_ev)
-        return ({"stacked": stacked, "opt": opt_state,
-                 "consensus": consensus},
-                {"loss": torch.mean(client_loss.reshape(B, K), dim=1),
-                 "acc": acc})
+        new_carry.update(stacked=stacked, consensus=consensus)
+        return new_carry, {"loss": torch.mean(client_loss.reshape(B, K),
+                                              dim=1),
+                           "acc": acc, **record}
 
     def run(self, rounds: int, timers=None):
-        """The sweep's ``(loss, acc)``, each (B, rounds)."""
+        """The sweep's ``(loss, acc, records)``: loss and accuracy (B,
+        rounds), the scenario's records (B, rounds[, C]) or ``None``."""
         rep = _Replayer(self.body, self.carry0, self.device, timers)
-        outs = [rep.run(t, (), lambda t=t: self.round_draws(t))
+        outs = [rep.run(t, self.key(t), lambda t=t: self.round_draws(t))
                 for t in range(rounds)]
         rep.finish()
         return (torch.stack([o["loss"] for o in outs], dim=1),
-                torch.stack([o["acc"] for o in outs], dim=1))
+                torch.stack([o["acc"] for o in outs], dim=1),
+                _records(outs, self.scenario.is_static, dim=1))
 
 
 def _sweep_grid(cfg, scenario: Scenario, seeds: int, snr_grid):
@@ -741,7 +783,9 @@ def run_monte_carlo(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
     """Monte-Carlo grid: ``seeds`` × ``snr_grid`` full trajectories, run as
     one batch (JAX vmaps them into one jit): their clients stacked beside
     K, one set of launches a round for all of them, the round captured as
-    in `run_rounds`'s scan mode.
+    in `run_rounds`'s scan mode.  Any registered scenario: a dynamic
+    one's processes run batched over the trajectories (`_Dynamics`), a
+    re-clustering or straggler round a graph of its own.
 
     ``snr_grid`` defaults to ``scenario.snr_grid`` when the scenario
     defines one (e.g. ``snr-sweep``); ``None``/empty sweeps only seeds, at
@@ -751,21 +795,15 @@ def run_monte_carlo(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
     splits the flattened seeds × SNR grid over the ranks of the
     ``torch.distributed`` group ``group`` (`repro_torch.sim.sharded.
     monte_carlo_sharded`), each rank running its chunk as one batch.
-    ``timers``: as `run_rounds`'s.  Static scenarios only.
+    ``timers``: as `run_rounds`'s.  ``topo_cfg``: as `run_rounds`'s.
 
     Returns ``train_loss``/``test_acc`` of shape (S, T) or (S, G, T) on
     the device, ``final_acc`` (S[, G]), ``seeds`` (S,) and ``snr_grid``
-    ((G,) f32, or ``None``).
+    ((G,) f32, or ``None``); a dynamic scenario adds ``scenario``, the
+    records of `run_rounds` for every trajectory: (S[, G], T), the heads
+    (S[, G], T, C).
     """
-    if isinstance(scenario, str):
-        scenario = get_scenario(scenario)
-    scenario = scenario or Scenario()
-    if not scenario.is_static:
-        raise NotImplementedError(
-            f"run_monte_carlo batches static scenarios; {scenario.name!r} "
-            f"is dynamic (ROADMAP §1 item 4, what is left: dynamic "
-            f"scenarios in the sweep, with kernel 2 batched)")
-    strategy = get_strategy(cfg.strategy)
+    scenario, strategy = _resolve(scenario, cfg, topo_cfg)
     seed_list, grid = _sweep_grid(cfg, scenario, seeds, snr_grid)
     if draws is not None and len(draws) != seeds:
         raise ValueError(f"draws= needs one Draws for each of the {seeds} "
@@ -777,41 +815,47 @@ def run_monte_carlo(init_fn: Callable, apply_fn: Callable, loss_fn: Callable,
                 f"(shard='mc'); got {shard!r} — client-axis sharding "
                 f"(shard='clients') lives in run_rounds")
         from repro_torch.sim import sharded
-        loss, acc = sharded.monte_carlo_sharded(
+        loss, acc, records = sharded.monte_carlo_sharded(
             init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test,
-            cfg, strategy, seed_list, grid, group=group, timers=timers,
-            draws=draws, device=device)
+            cfg, scenario, topo_cfg, strategy, seed_list, grid, group=group,
+            timers=timers, draws=draws, device=device)
     else:
         device = resolve_device(device)
         G = 1 if grid is None else len(grid)
         owner = [i for i in range(seeds) for _ in range(G)]
         snrs = [cfg.snr_db] * seeds if grid is None else grid * seeds
-        loss, acc = _run_sweep(init_fn, apply_fn, loss_fn, topology, xs, ys,
-                               x_test, y_test, cfg, strategy, seed_list,
-                               owner, snrs, draws, device, timers)
+        loss, acc, records = _run_sweep(
+            init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test,
+            cfg, scenario, topo_cfg, strategy, seed_list, owner, snrs, draws,
+            device, timers)
     shape = (seeds,) if grid is None else (seeds, len(grid))
-    loss = loss.reshape(shape + (cfg.rounds,))
-    acc = acc.reshape(shape + (cfg.rounds,))
-    return {"train_loss": loss, "test_acc": acc, "final_acc": acc[..., -1],
-            "seeds": torch.tensor(seed_list),
-            "snr_grid": (None if grid is None
-                         else torch.tensor(grid, dtype=torch.float32))}
+    history = {"train_loss": loss.reshape(shape + (cfg.rounds,)),
+               "test_acc": acc.reshape(shape + (cfg.rounds,)),
+               "seeds": torch.tensor(seed_list),
+               "snr_grid": (None if grid is None
+                            else torch.tensor(grid, dtype=torch.float32))}
+    history["final_acc"] = history["test_acc"][..., -1]
+    if records is not None:
+        history["scenario"] = {k: v.reshape(shape + v.shape[1:])
+                               for k, v in records.items()}
+    return history
 
 
 def _run_sweep(init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test,
-               cfg, strategy, seed_list: Sequence[int], owner: Sequence[int],
+               cfg, scenario: Scenario, topo_cfg, strategy,
+               seed_list: Sequence[int], owner: Sequence[int],
                snrs: Sequence, draws: Optional[Sequence[Draws]], device,
                timers=None):
     """The trajectories ``(seed_list[owner[b]], snrs[b])`` as one batch on
     ``device``; ``draws`` (one for each of ``seed_list``, or ``None``:
-    `TorchDraws` of each seed).  Returns ``(loss, acc)``, each
-    (B, rounds)."""
-    with _full_f32():
+    `TorchDraws` of each seed).  Returns ``(loss, acc, records)``
+    (`_Sweep.run`)."""
+    with _reference_numerics():
         draws = (list(draws) if draws is not None else
                  [TorchDraws(s, device) for s in seed_list])
         sweep = _Sweep(init_fn, apply_fn, loss_fn, topology.to(device),
                        xs.to(device), ys.to(device),
                        x_test[: cfg.eval_samples].to(device),
-                       y_test[: cfg.eval_samples].to(device), cfg, strategy,
-                       draws, owner, snrs, device)
+                       y_test[: cfg.eval_samples].to(device), cfg, scenario,
+                       topo_cfg, strategy, draws, owner, snrs, device)
         return sweep.run(cfg.rounds, timers)

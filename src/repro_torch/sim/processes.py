@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.topology import (Topology, TopologyConfig, link_stats,
-                                       pathloss_amplitude)
+                                       pathloss_amplitude, pow_f32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,8 +147,8 @@ def channel_view(state: ChannelState, tcfg: TopologyConfig) -> ChannelView:
     `make_topology`'s own rules (`pathloss_amplitude`, `link_stats`)."""
     K = state.positions.shape[0]
     off = 1.0 - torch.eye(K, device=state.positions.device)
-    amp = pathloss_amplitude(state.positions, tcfg) * (
-        10.0 ** (state.shadow_db / 20.0))
+    amp = pathloss_amplitude(state.positions, tcfg) * pow_f32(
+        torch.full((), 10.0, device=off.device), state.shadow_db / 20.0)
     link_gain = amp * state.h_tilde * off
     link_snr, adjacency = link_stats(link_gain, tcfg)
     return ChannelView(link_gain=link_gain, link_snr=link_snr,

@@ -4,9 +4,10 @@ over a ``torch.distributed`` process group, one process a rank.
 * ``monte_carlo_sharded`` (``run_monte_carlo(..., shard="mc")``): the
   trajectory grid is flattened seed-major, padded up to the group's size
   by repeating its last entry, and each rank runs its contiguous chunk as
-  one batched sweep (`repro_torch.sim.engine._run_sweep`); the metrics
-  are gathered once at the end.  Trajectories are independent, so the
-  sweep needs no collective before the gather.
+  one batched sweep (`repro_torch.sim.engine._run_sweep`), under any
+  registered scenario; the metrics and a dynamic scenario's records are
+  gathered once at the end.  Trajectories are independent, so the sweep
+  needs no collective before the gather.
 
 * ``run_rounds_client_sharded`` (``run_rounds(..., shard="clients")``):
   within ONE large-K trajectory the stacked client axis is split over the
@@ -26,8 +27,12 @@ precoding powers are summed over the flat vector rather than leaf by leaf,
 and the round's products run as plain ``torch.matmul`` (as in JAX, where
 they sit outside any Pallas kernel) rather than the fused round kernel.
 
-The client-sharded round runs in a loop (``mode="loop"``); its capture
-over NCCL is not ported yet (ROADMAP §1 item 3, what is left).
+The client-sharded round is one ``body(carry, draws, t)``, as the
+unsharded engine's: ``mode="loop"`` runs it eagerly, ``mode="scan"`` (the
+default) through the engine's `_Replayer` — on a CUDA device an eager
+first round (which creates the NCCL communicator, on the capture's
+stream), then one CUDA graph a round with the round's collectives inside
+it; on the CPU (``gloo``) every round eagerly.
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ import torch.distributed as dist
 from repro_torch.core import cwfl
 from repro_torch.core.topology import Topology
 from repro_torch.models.small import accuracy
-from repro_torch.sim.draws import Draws, TorchDraws
-from repro_torch.sim.engine import _full_f32, _history, _prepare, _run_sweep
+from repro_torch.sim.draws import Draws, RoundDraws, TorchDraws, take_round
+from repro_torch.sim.engine import (_history, _on, _phase, _prepare,
+                                    _reference_numerics, _Replayer,
+                                    _run_sweep)
 from repro_torch.sim.scenarios import Scenario, get_scenario
 from repro_torch.strategies import get_strategy
 from repro_torch.utils.device import resolve_device
@@ -58,16 +65,25 @@ def _pad_to(xs: list, n: int) -> list:
     return list(xs) + [xs[-1]] * max(n - len(xs), 0)
 
 
+def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the leading axis, in rank
+    order, on every rank."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
 def make_sharded_sweep_fn(init_fn: Callable, apply_fn: Callable,
                           loss_fn: Callable, topology: Topology,
                           xs: torch.Tensor, ys: torch.Tensor,
                           x_test: torch.Tensor, y_test: torch.Tensor, cfg,
-                          strategy, n_pad: int, group=None,
-                          draws_of: Optional[Callable] = None, device=None,
-                          timers=None) -> Callable:
+                          scenario: Scenario, topo_cfg, strategy, n_pad: int,
+                          group=None, draws_of: Optional[Callable] = None,
+                          device=None, timers=None) -> Callable:
     """The sweep over ``n_pad`` flattened trajectories (a multiple of the
-    group's size): ``f(seed_flat, snr_flat) -> (loss, acc)``, each
-    (n_pad, T) on every rank.  Rank r runs trajectories
+    group's size): ``f(seed_flat, snr_flat) -> (loss, acc, records)``,
+    loss and accuracy (n_pad, T) and a dynamic scenario's records
+    (n_pad, T[, C]) or ``None``, on every rank.  Rank r runs trajectories
     [r·n_pad/n, (r+1)·n_pad/n) as one batch on ``device`` (the seeds of
     its chunk drawn by ``draws_of(seed)``, default `TorchDraws`; a seed's
     trajectories share one `Draws`), then the chunks are gathered."""
@@ -83,15 +99,15 @@ def make_sharded_sweep_fn(init_fn: Callable, apply_fn: Callable,
         seeds = list(dict.fromkeys(seed_flat[mine]))
         draws = [draws_of(s) if draws_of is not None
                  else TorchDraws(s, device) for s in seeds]
-        loss, acc = _run_sweep(
+        loss, acc, records = _run_sweep(
             init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test,
-            cfg, strategy, seeds, [seeds.index(s) for s in seed_flat[mine]],
-            snr_flat[mine], draws, device, timers)
-        out = torch.stack([loss, acc])                    # (2, chunk, T)
-        gathered = [torch.empty_like(out) for _ in range(world)]
-        dist.all_gather(gathered, out, group=group)
-        both = torch.cat(gathered, dim=1)
-        return both[0], both[1]
+            cfg, scenario, topo_cfg, strategy, seeds,
+            [seeds.index(s) for s in seed_flat[mine]], snr_flat[mine],
+            draws, device, timers)
+        if records is not None:
+            records = {k: _gather_rows(v, group)
+                       for k, v in sorted(records.items())}
+        return _gather_rows(loss, group), _gather_rows(acc, group), records
 
     return sweep
 
@@ -100,17 +116,19 @@ def monte_carlo_sharded(init_fn: Callable, apply_fn: Callable,
                         loss_fn: Callable, topology: Topology,
                         xs: torch.Tensor, ys: torch.Tensor,
                         x_test: torch.Tensor, y_test: torch.Tensor, cfg,
-                        strategy, seeds: Sequence[int],
+                        scenario: Scenario, topo_cfg, strategy,
+                        seeds: Sequence[int],
                         snr_grid: Optional[Sequence[float]], group=None,
                         timers=None, draws: Optional[Sequence] = None,
                         device=None):
     """The seeds × ``snr_grid`` sweep (``snr_grid`` ``None``: the seeds at
-    ``cfg.snr_db``) split over the ranks of ``group``: flattened
-    seed-major (pair i = (seeds[i // G], grid[i % G]), the order of the
-    unsharded sweep), padded to the group's size, a chunk a rank
-    (:func:`make_sharded_sweep_fn`).  ``draws``: one `Draws` for each of
-    ``seeds``, or ``None``.  Called by every rank; returns ``(loss,
-    acc)``, each (S·G, T), the same on every rank."""
+    ``cfg.snr_db``) under ``scenario`` split over the ranks of ``group``:
+    flattened seed-major (pair i = (seeds[i // G], grid[i % G]), the
+    order of the unsharded sweep), padded to the group's size, a chunk a
+    rank (:func:`make_sharded_sweep_fn`).  ``draws``: one `Draws` for each
+    of ``seeds``, or ``None``.  Called by every rank; returns ``(loss,
+    acc, records)``, loss and accuracy (S·G, T) and the records (S·G,
+    T[, C]) or ``None``, the same on every rank."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             "shard='mc' runs over a torch.distributed process group, one "
@@ -127,11 +145,14 @@ def monte_carlo_sharded(init_fn: Callable, apply_fn: Callable,
     by_seed = dict(zip(seeds, draws)) if draws is not None else None
     sweep = make_sharded_sweep_fn(
         init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test, cfg,
-        strategy, n_pad, group=group,
+        scenario, topo_cfg, strategy, n_pad, group=group,
         draws_of=None if by_seed is None else by_seed.__getitem__,
         device=device, timers=timers)
-    loss, acc = sweep(_pad_to(seed_flat, n_pad), _pad_to(snr_flat, n_pad))
-    return loss[:n], acc[:n]
+    loss, acc, records = sweep(_pad_to(seed_flat, n_pad),
+                               _pad_to(snr_flat, n_pad))
+    if records is not None:
+        records = {k: v[:n] for k, v in records.items()}
+    return loss[:n], acc[:n], records
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +206,7 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
                               cfg, scenario: Union[Scenario, str, None] = None,
                               group=None, progress: Optional[Callable] = None,
                               draws: Optional[Draws] = None, device=None, *,
+                              mode: str = "scan", timers=None,
                               telemetry: bool = False,
                               checkpoint_dir: Optional[str] = None,
                               resume: bool = False,
@@ -197,9 +219,12 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
     returns the same history on every rank, with the same keys as
     `repro_torch.sim.engine.run_rounds`.
 
-    Static CWFL scenarios only: masking and re-clustering have not been
-    taught the sharded sync.  ``progress(r, loss, acc)`` runs on every
-    rank.  ``telemetry``, ``checkpoint_dir``/``resume``/``stop_after`` and
+    ``mode="scan"`` (default): an eager first round, then one CUDA graph a
+    round, the collectives captured (eager on the CPU); ``mode="loop"``:
+    an eager loop, which takes ``progress(r, loss, acc)`` (called on every
+    rank).  Both give the same history.  ``timers``: as `run_rounds`'s.
+    Static CWFL scenarios only, as JAX's client-sharded run.
+    ``telemetry``, ``checkpoint_dir``/``resume``/``stop_after`` and
     ``stream`` are not ported (ROADMAP §1 item 5) and raise."""
     for name, value in (("telemetry", telemetry),
                         ("checkpoint_dir", checkpoint_dir),
@@ -214,8 +239,9 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
     scenario = scenario or Scenario()
     if not scenario.is_static:
         raise NotImplementedError(
-            "shard='clients' supports static scenarios only (dynamic "
-            "masking/re-clustering have not been taught the sharded sync)")
+            "shard='clients' takes static scenarios only, as the JAX "
+            "package's client-sharded run does: its sync has no "
+            "participation mask, fault fold or re-clustering")
     strategy = get_strategy(cfg.strategy)
     if not strategy.supports_client_sharding:
         raise NotImplementedError(
@@ -237,7 +263,7 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
     rows = slice(rank * kl, (rank + 1) * kl)
 
     device = resolve_device(device)
-    with _full_f32():
+    with _reference_numerics():
         topology = topology.to(device)
         xs_l, ys_l = xs[rows].to(device), ys[rows].to(device)
         x_ev = x_test[: cfg.eval_samples].to(device)
@@ -247,26 +273,47 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
             init_fn, loss_fn, topology, cfg, strategy, draws, n_k, device)
         stacked = tree_map(lambda x: x.expand((kl,) + x.shape).clone(),
                            consensus)
-        opt_state = optimizer.init(stacked)
+        carry0 = {"stacked": stacked, "opt": optimizer.init(stacked),
+                  "consensus": consensus}
         d = tree_size(consensus)
 
-        losses, accs = [], []
-        for t in range(cfg.rounds):
+        def round_draws(t: int) -> RoundDraws:
             # The global draws, of which this rank takes its clients' rows.
-            idx = draws.batch_indices(t, K, steps, cfg.batch_size, n_k)
+            rd = take_round(draws, t, strategy=strategy, scenario=scenario,
+                            num_clients=K, steps=steps, batch=cfg.batch_size,
+                            n_k=n_k, num_clusters=cfg.num_clusters, d=d)
+            return _on(rd._replace(idx=rd.idx[rows]), device)
+
+        def body(carry: dict, rd: RoundDraws, t: int):
+            del t
             trained, opt_state, client_loss = local_run(
-                stacked, opt_state, xs_l, ys_l, idx[rows].to(device))
-            unit1, unit2 = draws.phase_noise(t, cfg.num_clusters, d)
+                carry["stacked"], carry["opt"], xs_l, ys_l, rd.idx)
             with torch.no_grad():
-                stacked, consensus = _client_sharded_sync(
-                    trained, state, (unit1.to(device), unit2.to(device)),
-                    group)
-                acc = accuracy(apply_fn(consensus, x_ev), y_ev)
+                new, cons = _client_sharded_sync(trained, state, rd.noise,
+                                                 group)
+                acc = accuracy(apply_fn(cons, x_ev), y_ev)
                 total = torch.sum(client_loss).reshape(1)
                 dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-            loss = total[0] / K
-            losses.append(loss)
-            accs.append(acc)
-            if progress is not None:
-                progress(t + 1, float(loss), float(acc))
-        return _history(losses, accs, consensus)
+            return ({"stacked": new, "opt": opt_state, "consensus": cons},
+                    {"loss": total[0] / K, "acc": acc})
+
+        outs = []
+        if mode == "loop":
+            carry = carry0
+            for t in range(cfg.rounds):
+                with _phase(timers, "execute"):
+                    carry, out = body(carry, round_draws(t), t)
+                    if timers is not None and device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                outs.append(out)
+                if progress is not None:
+                    progress(t + 1, float(out["loss"]), float(out["acc"]))
+            consensus = carry["consensus"]
+        else:
+            rep = _Replayer(body, carry0, device, timers)
+            for t in range(cfg.rounds):
+                outs.append(rep.run(t, (), lambda t=t: round_draws(t)))
+            rep.finish()
+            consensus = rep.state()["consensus"]
+        return _history([o["loss"] for o in outs], [o["acc"] for o in outs],
+                        consensus)

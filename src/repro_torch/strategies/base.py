@@ -8,9 +8,13 @@ masked round (``receive_mask``), the head-failure handoff
 (``on_head_failure``), re-clustering (``recluster``) and the channel uses
 a round costs (``channel_uses``).  A Monte-Carlo sweep runs its
 trajectories together through the ``*_batch`` hooks (``init_batch``,
-``sync_noise_batch``, ``aggregate_batch``):
-states stacked along a leading trajectory axis, and the trajectories'
-clients stacked beside K.  Every front door resolves a strategy by name
+``aggregate_batch``): states stacked along a leading trajectory axis,
+and the trajectories' clients stacked beside K.  Under a dynamic
+scenario the sweep maps ``state_from_view``, ``on_head_failure``,
+``recluster`` and ``receive_mask`` over its trajectories with
+``torch.func.vmap`` (`repro_torch.utils.nest.nest_vmap`), so these hooks
+must be pure functions of their tensors: no host sync, no Python branch
+on a tensor's value.  Every front door resolves a strategy by name
 through :func:`get_strategy`.  Capability flags say which executors and
 which scenario hooks apply to a strategy.  JAX's ``telemetry`` hook is
 not ported.
@@ -19,8 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, ClassVar, Optional, Sequence
-
-import torch
 
 from repro_torch.core.cwfl import stack_states
 
@@ -100,25 +102,15 @@ class Strategy:
         return stack_states([self.init(topology, draws[i], cfg, snr_db=snr)
                              for i, snr in trajectories])
 
-    def sync_noise_batch(self, draws: Sequence, round_: int,
-                         num_clients: int, num_clusters: int, d: int):
-        """:meth:`sync_noise` of each seed's ``draws``, stacked along a
-        leading seed axis (a seed's SNR points share it)."""
-        noise = [self.sync_noise(dr, round_, num_clients, num_clusters, d)
-                 for dr in draws]
-        if noise[0] is None:
-            return None
-        if isinstance(noise[0], tuple):
-            return tuple(torch.stack(x) for x in zip(*noise))
-        return torch.stack(noise)
-
-    def aggregate_batch(self, stacked_params, state: State, noise):
-        """One static sync of B stacked trajectories: ``stacked_params``
-        leaves (B·K, ...), trajectory b's clients at rows
-        b·K .. b·K + K − 1; ``state`` stacked (:meth:`init_batch`);
-        ``noise`` the :meth:`sync_noise` of each trajectory stacked along
-        a leading B.  Returns ``(new_stacked, consensus)``, the consensus
-        leaves (B, ...)."""
+    def aggregate_batch(self, stacked_params, state: State, noise,
+                        mask=None, alive=None):
+        """One sync of B stacked trajectories: ``stacked_params`` leaves
+        (B·K, ...), trajectory b's clients at rows b·K .. b·K + K − 1;
+        ``state`` stacked (:meth:`init_batch`, or :meth:`state_from_view`
+        mapped over the trajectories); ``noise`` the :meth:`sync_noise` of
+        each trajectory stacked along a leading B; ``mask`` and ``alive``
+        (B, K), as :meth:`aggregate`'s.  Returns ``(new_stacked,
+        consensus)``, the consensus leaves (B, ...)."""
         raise NotImplementedError(
             f"{type(self).__name__} has no batched sync")
 

@@ -71,8 +71,10 @@ class CWFLStrategy(Strategy):
         return cwfl.aggregate(stacked_params, state, noise, mask=mask,
                               alive=alive)
 
-    def aggregate_batch(self, stacked_params, state, noise):
-        return cwfl.aggregate_batch(stacked_params, state, noise)
+    def aggregate_batch(self, stacked_params, state, noise, mask=None,
+                        alive=None):
+        return cwfl.aggregate_batch(stacked_params, state, noise, mask=mask,
+                                    alive=alive)
 
     def receive_mask(self, state, mask, alive=None):
         # Heads are the phase-1/2 receivers: they keep the aggregate they
@@ -127,8 +129,11 @@ class COTAFStrategy(Strategy):
         return baselines.cotaf_aggregate(stacked_params, state, noise,
                                          mask=mask)
 
-    def aggregate_batch(self, stacked_params, state, noise):
-        return baselines.cotaf_aggregate_batch(stacked_params, state, noise)
+    def aggregate_batch(self, stacked_params, state, noise, mask=None,
+                        alive=None):
+        del alive   # as in aggregate()
+        return baselines.cotaf_aggregate_batch(stacked_params, state, noise,
+                                               mask=mask)
 
     def receive_mask(self, state, mask, alive=None):
         # The server holds the aggregate, so it keeps it; failover keeps
@@ -153,8 +158,9 @@ class FedAvgStrategy(Strategy):
 
     def state_from_view(self, state0, view, noise_var, *, csi=None,
                         mask=None, plan=None, alive=None):
-        del state0, view, noise_var, csi, mask, plan, alive
-        return None
+        # Stateless: None, or a sweep's count of trajectories.
+        del view, noise_var, csi, mask, plan, alive
+        return state0
 
     def aggregate(self, stacked_params, state, noise, mask=None,
                   alive=None):
@@ -166,9 +172,11 @@ class FedAvgStrategy(Strategy):
         del topology, draws, cfg
         return len(trajectories)
 
-    def aggregate_batch(self, stacked_params, state, noise):
-        del noise
-        return baselines.fedavg_aggregate_batch(stacked_params, state)
+    def aggregate_batch(self, stacked_params, state, noise, mask=None,
+                        alive=None):
+        del noise, alive   # dead nodes arrive masked
+        return baselines.fedavg_aggregate_batch(stacked_params, state,
+                                                weights=mask)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +211,9 @@ class DecentralizedStrategy(Strategy):
         return baselines.decentralized_aggregate(stacked_params, state,
                                                  noise)
 
-    def aggregate_batch(self, stacked_params, state, noise):
+    def aggregate_batch(self, stacked_params, state, noise, mask=None,
+                        alive=None):
+        del mask, alive   # already pruned into each Metropolis graph
         return baselines.decentralized_aggregate_batch(stacked_params,
                                                        state, noise)
 

@@ -12,6 +12,7 @@ fails its test and not the suite.
 
 The noise of both packages is the same: JAX's normals, rebuilt from its
 keys with its own splits, are handed to the port as unit normals."""
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -365,6 +366,20 @@ def _rank_entry(rank, world, store, out, job, payload):
         pickle.dump(result, f)
 
 
+@contextlib.contextmanager
+def one_rank_group(tmp_path):
+    """A gloo process group of one rank in this process, for the length
+    of the block."""
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'one-rank-store'}",
+        world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=RENDEZVOUS_S))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def _spawn(job, world, payload, tmp_path):
     """``job(rank, world, payload)`` in ``world`` gloo processes; returns
     each rank's result.  A rank that raises fails the test with its
@@ -643,11 +658,11 @@ def test_client_sharded_across_two_ranks(fl_workload, tmp_path):
                                        "ranks of the process group")
 
 
-def test_client_sharded_guards(fl_workload):
+def test_client_sharded_guards(fl_workload, tmp_path):
     """JAX's guards, checked before any collective: another shard than
     "clients", a dynamic scenario, a strategy without the capability
-    flag; then no process group, the scanned mode (the sharded run is a
-    loop), and the unported options."""
+    flag; then no process group and the unported options.  In a group of
+    one rank the default scanned mode runs, bitwise the loop."""
     topo, data = fl_workload
     init, apply, loss = _mlp()
     ttopo = topology_from_arrays(np.asarray(topo.positions),
@@ -675,9 +690,12 @@ def test_client_sharded_guards(fl_workload):
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="init_process_group"):
         run_rounds(*args, cfg, device="cpu", shard="clients", mode="loop")
-    # The client-sharded round runs in a loop; its capture is not ported.
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-        run_rounds(*args, cfg, device="cpu", shard="clients")
+    with one_rank_group(tmp_path):
+        scan = run_rounds(*args, cfg, device="cpu", shard="clients")
+        loop = run_rounds(*args, cfg, device="cpu", shard="clients",
+                          mode="loop")
+    assert torch.equal(scan["train_loss"], loop["train_loss"])
+    assert torch.equal(scan["test_acc"], loop["test_acc"])
     for kw in ({"telemetry": True}, {"checkpoint_dir": "ckpt"},
                {"resume": True}, {"stop_after": 1}, {"stream": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):

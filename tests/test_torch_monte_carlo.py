@@ -249,8 +249,9 @@ def test_batched_elements_equal_lone_runs(workload, strategy):
 
 def test_monte_carlo_grid_and_guards(workload):
     """No grid: the seeds at ``cfg.snr_db``, (S, T); ``snr-sweep``'s own
-    grid by default, (S, 5, T); a dynamic scenario, another shard and a
-    wrong count of draws raise."""
+    grid by default, (S, 5, T); a dynamic scenario runs, its records
+    (S, T) and heads (S, T, C); another shard and a wrong count of draws
+    raise."""
     port = _port(workload)
     cfg = FLConfig(rounds=1, snr_db=40.0, eval_samples=EVAL, seed=0)
     seeds_only = run_monte_carlo(*port, cfg, seeds=2, device="cpu")
@@ -262,9 +263,14 @@ def test_monte_carlo_grid_and_guards(workload):
     assert sweep["train_loss"].shape == (1, 5, 1)
     assert sweep["snr_grid"].tolist() == [0.0, 10.0, 20.0, 30.0, 40.0]
     assert torch.equal(sweep["train_loss"][0, 4], seeds_only["train_loss"][0])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        run_monte_carlo(*port, cfg, scenario="head-failure", seeds=1,
-                        device="cpu")
+    faults = run_monte_carlo(*port, cfg, scenario="head-failure", seeds=1,
+                             device="cpu")
+    assert faults["train_loss"].shape == (1, 1)
+    assert torch.isfinite(faults["train_loss"]).all()
+    assert {k: tuple(v.shape) for k, v in faults["scenario"].items()} == {
+        "alive": (1, 1), "mask_mass": (1, 1), "quarantined": (1, 1),
+        "heads": (1, 1, 3)}
+    assert "scenario" not in seeds_only
     with pytest.raises(ValueError, match="shard='mc'"):
         run_monte_carlo(*port, cfg, seeds=1, shard="clients", device="cpu")
     with pytest.raises(ValueError, match="one Draws for each"):
@@ -300,9 +306,11 @@ def test_shard_mc_over_two_ranks_equals_unsharded(workload, tmp_path):
 @pytest.mark.parametrize("strategy", ["cwfl", "cotaf", "decentralized"])
 def test_batched_strategy_hooks(workload, strategy):
     """``init_batch`` stacks one state a (seed, SNR) pair, a seed's first
-    centre drawn once; ``sync_noise_batch`` is the per-seed hook
-    stacked."""
+    centre drawn once; ``take_rounds`` is each seed's ``take_round``
+    stacked, its sync noise the strategy's ``sync_noise``."""
     from repro_torch.sim import TorchDraws
+    from repro_torch.sim.draws import take_round, take_rounds
+    from repro_torch.sim.scenarios import Scenario
     from repro_torch.strategies import get_strategy
 
     topo = _port(workload)[3]
@@ -316,9 +324,10 @@ def test_batched_strategy_hooks(workload, strategy):
     for x, ys in zip(_leaves(stacked), zip(*ones), strict=True):
         assert torch.equal(x, torch.stack(ys))
     draws = [TorchDraws(s, "cpu") for s in (0, 1)]
-    noise = strat.sync_noise_batch(draws, 0, K, 3, 100)
-    ones = [strat.sync_noise(TorchDraws(s, "cpu"), 0, K, 3, 100)
-            for s in (0, 1)]
+    kw = dict(strategy=strat, scenario=Scenario(), num_clients=K, steps=1,
+              batch=2, n_k=4, num_clusters=3, d=100)
+    noise = take_rounds(draws, 0, **kw).noise
+    ones = [take_round(TorchDraws(s, "cpu"), 0, **kw).noise for s in (0, 1)]
     for i, one in enumerate(ones):
         for x, y in zip(noise if isinstance(noise, tuple) else (noise,),
                         one if isinstance(one, tuple) else (one,)):

@@ -158,15 +158,18 @@ def test_scan_equals_loop_bitwise(world, strategy, scenario):
                  _run(world, "loop", strategy, scenario, rounds=6))
 
 
-def test_mode_guards(world):
+def test_mode_guards(world, tmp_path):
     """``progress`` needs the loop; the mode is one of two; the
-    client-sharded round runs in a loop, its capture not yet ported."""
+    client-sharded round scans too, bitwise its loop (one gloo rank)."""
+    from test_torch_dist import one_rank_group
+
     with pytest.raises(ValueError, match="mode='loop'"):
         _run(world, "scan", progress=lambda *_: None)
     with pytest.raises(ValueError, match="'scan' or 'loop'"):
         _run(world, "jit")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-        _run(world, "scan", shard="clients")
+    with one_rank_group(tmp_path):
+        _assert_same(_run(world, "scan", shard="clients"),
+                     _run(world, "loop", shard="clients"))
 
 
 def test_run_federated_picks_the_mode_as_jax(world, monkeypatch):
