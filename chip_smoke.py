@@ -120,6 +120,19 @@ Phases, each printed as one JSON object per line:
    memory, the wrappers' calls against the profiler's launches (the
    batched guarded ``cwfl_round`` once a round in a fault sweep), and the
    dead Ã rows each round hands the kernel, counted on the device;
+7g. obs — telemetry, checkpoints and the live stream at MNIST width:
+   paper-static scanned with telemetry off and on (bitwise, steady
+   rounds/s each, the round kernel once a round under the profiler; the
+   card's telemetry against the CPU's on the same draws, `OBS_TOL`), with
+   a `MemorySink` stream (every record bitwise the post-hoc telemetry),
+   paper-static and head-failure stopped at a checkpoint and resumed
+   (bitwise; each save's ms, a step directory's bytes), the head-failure
+   8 × 5 sweep with telemetry (trajectory-rounds/s, peak memory, each
+   element bitwise its lone telemetered run), COTAF and decentralized
+   with telemetry, CIFAR CWFL-3 with telemetry (rounds/s, peak memory),
+   and one NCCL rank client-sharded with telemetry and resume; the
+   wrappers' calls on these runs go into the kernel rows as
+   ``launches_obs``;
 8. serve — ``greedy_decode`` of Gemma-2 9B at its published width (f32,
    random weights drawn on the card): 2 requests of 4,608-token prompts,
    16 greedy tokens; prefill seconds, decode tokens/s, the kernel's
@@ -2173,15 +2186,26 @@ def batched_kernel_phase(kmod, omod, cwfl_ref, ota_ref):
 
 
 def histories_equal(a: dict, b: dict) -> dict:
-    """How far two runs' histories are apart: the largest relative loss
-    gap, accuracy gap, final-params gap and whether the scenario records
-    agree, and whether all of it is bitwise."""
+    """How far two runs' histories are apart (on the card or the CPU,
+    compared on the CPU): the largest relative loss gap, accuracy gap,
+    final-params gap and whether the scenario records agree, and whether
+    all of it is bitwise."""
     from repro_torch.utils import tree_leaves
 
-    la, lb = torch.as_tensor(a["train_loss"]), torch.as_tensor(b["train_loss"])
-    aa, ab = torch.as_tensor(a["test_acc"]), torch.as_tensor(b["test_acc"])
-    pa, pb = tree_leaves(a["final_params"]), tree_leaves(b["final_params"])
-    rec = a.get("scenario") == b.get("scenario")
+    def host(x):
+        return torch.as_tensor(x).cpu()
+
+    la, lb = host(a["train_loss"]), host(b["train_loss"])
+    aa, ab = host(a["test_acc"]), host(b["test_acc"])
+    pa = [host(x) for x in tree_leaves(a["final_params"])]
+    pb = [host(x) for x in tree_leaves(b["final_params"])]
+    ra, rb = a.get("scenario"), b.get("scenario")
+    if isinstance(ra, dict) and isinstance(rb, dict):
+        # run_rounds' records are tensors, run_federated's lists.
+        rec = sorted(ra) == sorted(rb) and all(
+            torch.equal(host(ra[k]), host(rb[k])) for k in ra)
+    else:
+        rec = ra == rb
     bitwise = (torch.equal(la, lb) and torch.equal(aa, ab) and rec
                and all(torch.equal(x, y) for x, y in zip(pa, pb)))
     return {"bitwise": bool(bitwise),
@@ -2788,6 +2812,389 @@ def dynamic_sweep_phase(kmod, omod) -> dict:
     return guarded
 
 
+# The obs phase's tolerance for telemetry on the card against the CPU on the
+# same draws: the ledger, the participants and the re-clustering flags
+# exact; the cluster losses within the FL gate's loss 1e-4 relative; every
+# other field within 1e-3 of the field's largest magnitude over the run
+# (drift is a norm over d = 184,214 differences of params that the FL gate
+# holds only to 1e-4 each, and the precoding and noise extras are read off
+# the same params).
+OBS_EXACT = ("participants", "channel_uses", "cum_channel_uses",
+             "cum_symbols", "reclustered")
+OBS_TOL = {"cluster_loss": 1e-4}
+OBS_TOL_OTHER = 1e-3
+
+
+def telemetry_fields(tele) -> dict:
+    """A `RoundTelemetry` as one flat dict of tensors by field name (the
+    extras under their own names)."""
+    out = {k: v for k, v in tele._asdict().items() if k != "extras"}
+    out.update(tele.extras)
+    return out
+
+
+def telemetry_bitwise(a, b) -> bool:
+    fa, fb = telemetry_fields(a), telemetry_fields(b)
+    return sorted(fa) == sorted(fb) and all(
+        torch.equal(fa[k].cpu(), fb[k].cpu()) for k in fa)
+
+
+def telemetry_gap(got, want) -> dict:
+    """Each field's largest |got − want| over the field's largest
+    magnitude in ``want``, and whether every field is within its
+    tolerance (OBS_EXACT, OBS_TOL, OBS_TOL_OTHER)."""
+    fg, fw = telemetry_fields(got), telemetry_fields(want)
+    rel, ok = {}, sorted(fg) == sorted(fw)
+    for k, w in fw.items():
+        g, w = fg[k].float().cpu(), w.float().cpu()
+        scale = max(float(w.abs().max()), 1e-30)
+        rel[k] = float((g - w).abs().max()) / scale
+        tol = 0.0 if k in OBS_EXACT else OBS_TOL.get(k, OBS_TOL_OTHER)
+        ok = ok and rel[k] <= tol and bool(torch.isfinite(g).all())
+    return {"rel": rel, "within_tol": bool(ok)}
+
+
+def cifar_workload(rounds: int):
+    """The CIFAR column's CWFL-3 inputs at the paper's scale (K = 27, the
+    CNN, d = 698,250, non-IID), as the paper phase runs them."""
+    import dataclasses
+
+    from repro_torch.paper.common import BenchScale, make_setting
+
+    scale = dataclasses.replace(BenchScale.full(), rounds=rounds)
+    return make_setting("cifar", False, "cwfl", scale, device=DEVICE)
+
+
+def obs_phase(kmod, omod) -> dict:
+    """Telemetry, checkpoints and the live stream at the paper's MNIST
+    width (K = 50, C = 3, d = 184,214, 40 dB), each run scanned:
+
+    1. paper-static, 12 rounds, telemetry off and on: the loss, accuracy
+       and final params bitwise; steady rounds/s of each; then 4 rounds
+       with the same draws (made on the CPU) on the card and on the CPU,
+       the card's telemetry within the gate of OBS_TOL;
+    2. the same 12 rounds with a `MemorySink` stream: every record bitwise
+       the post-hoc telemetry (the tap runs with host syncs raising);
+    3. paper-static and head-failure (kernel 2), 12 rounds, a checkpoint
+       every 4, stopped after round 5 (at 8), resumed: history, telemetry
+       and final params bitwise the uninterrupted run; each save's ms and
+       one step directory's bytes;
+    4. the head-failure 8 seeds × 5 SNRs sweep with telemetry, 5 rounds:
+       trajectory-rounds/s, peak memory, each element's telemetry bitwise
+       its lone telemetered run;
+    5. CIFAR CWFL-3 with telemetry, 3 rounds: rounds/s, peak memory;
+    6. one NCCL rank, client-sharded, 6 rounds with telemetry: the scan
+       bitwise its loop, and a resume (a checkpoint every 2, stopped after
+       round 3) bitwise the scan;
+    and COTAF and decentralized (kernel 3) with telemetry, 5 rounds.
+    Returns each kernel's wrapper calls on these paths."""
+    import dataclasses
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import TopologyConfig
+    from repro_torch.obs import MemorySink, PhaseTimers, RoundStream
+    from repro_torch.obs.stream import _np_tree, _tree_index
+    from repro_torch.sim import TorchDraws, get_scenario, run_monte_carlo
+    from repro_torch.sim import run_rounds
+    from repro_torch.training import FLConfig
+
+    t_phase = time.perf_counter()
+    workload = full_width_workload()
+    topo_cfg = TopologyConfig(num_clients=50)
+    cfg = FLConfig(rounds=12, num_clusters=3, snr_db=40.0, seed=0)
+    ckpt_root = ROOT / "build" / f"obs-ckpt-{os.getpid()}"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def run(c=cfg, **kw):
+        return run_rounds(*workload, c, topo_cfg=topo_cfg, device=DEVICE,
+                          **kw)
+
+    def calls():
+        return {"cwfl_round": kmod.launches,
+                "cwfl_round_guard": kmod.launches_guard,
+                "ota_aggregate": omod.launches}
+
+    def zero():
+        kmod.launches = kmod.launches_guard = omod.launches = 0
+
+    def steady(timers, rounds):
+        return (rounds - 1) / timers.seconds["execute"]
+
+    wrapper = {}
+    out = {"phase": "obs", "K": 50, "C": 3, "d": 184214}
+
+    # 1. Telemetry off and on.
+    hist, rate = {}, {}
+    for label, kw in (("off", {}), ("on", {"telemetry": True}),
+                      ("off_again", {}), ("on_again", {"telemetry": True})):
+        timers = PhaseTimers()
+        torch.cuda.synchronize()
+        zero()
+        hist[label] = run(timers=timers, **kw)
+        torch.cuda.synchronize()
+        rate[label] = steady(timers, cfg.rounds)
+        if label == "on":
+            wrapper["paper_static_telemetry"] = calls()
+    on = hist["on"]
+    off_vs_on = histories_equal(on, hist["off"])
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        run(telemetry=True)
+        torch.cuda.synchronize()
+    profiled = profiled_launches(prof)
+    del prof
+    c4 = dataclasses.replace(cfg, rounds=4)
+    card = run(c4, telemetry=True, draws=TorchDraws(0, "cpu"))
+    cpu = run_rounds(*workload, c4, topo_cfg=topo_cfg, device="cpu",
+                     telemetry=True, draws=TorchDraws(0, "cpu"))
+    card_vs_cpu = {"history": histories_equal(card, cpu),
+                   "telemetry": telemetry_gap(card["telemetry"],
+                                              cpu["telemetry"])}
+    del card, cpu
+    out["telemetry"] = {
+        "rounds": cfg.rounds,
+        "steady_rounds_per_s_off": [rate["off"], rate["off_again"]],
+        "steady_rounds_per_s_on": [rate["on"], rate["on_again"]],
+        "on_vs_off": off_vs_on,
+        "on_vs_on_again_telemetry_bitwise": telemetry_bitwise(
+            on["telemetry"], hist["on_again"]["telemetry"]),
+        "profiled_launches_12_rounds": profiled,
+        "card_vs_cpu_4_rounds": card_vs_cpu,
+        "tol": {"exact": list(OBS_EXACT), **OBS_TOL,
+                "other_rel_to_scale": OBS_TOL_OTHER},
+        "cum_channel_uses_last": float(on["telemetry"].cum_channel_uses[-1]),
+        "cum_symbols_last": float(on["telemetry"].cum_symbols[-1]),
+        "cluster_loss_last": on["telemetry"].cluster_loss[-1].tolist(),
+        "power_budget_frac_last": float(
+            on["telemetry"].extras["power_budget_frac"][-1])}
+    if not off_vs_on["bitwise"]:
+        raise AssertionError(f"telemetry changed the run: {off_vs_on}")
+    if profiled != {"cwfl_round": cfg.rounds, "cwfl_round_guard": 0,
+                    "ota_aggregate": 0}:
+        raise AssertionError(f"the telemetered paper-static run launched "
+                             f"{profiled} in {cfg.rounds} rounds")
+    if not card_vs_cpu["telemetry"]["within_tol"] or not fl_gate(
+            card_vs_cpu["history"]):
+        raise AssertionError(f"the card's telemetry is off the CPU's: "
+                             f"{card_vs_cpu}")
+
+    # 2. The live stream.
+    sink = MemorySink()
+    stream = RoundStream([sink])
+    timers = PhaseTimers()
+    torch.cuda.synchronize()
+    streamed = run(telemetry=True, stream=stream, timers=timers)
+    torch.cuda.synchronize()
+    tele = _np_tree(streamed["telemetry"])
+    records = stream.records()
+    same = (histories_equal(streamed, on)["bitwise"]
+            and [r["round"] for r in records] == list(
+                range(1, cfg.rounds + 1))
+            and all(np.array_equal(r["train_loss"],
+                                   streamed["train_loss"][r["round"] - 1]
+                                   .cpu().numpy())
+                    and stream_record_equal(r["telemetry"], _tree_index(
+                        tele, r["round"] - 1)) for r in records))
+    out["stream"] = {"records": len(records), "errors": stream.errors,
+                     "records_bitwise_posthoc": bool(same),
+                     "host_syncs_raise_in_tap": True,
+                     "steady_rounds_per_s": steady(timers, cfg.rounds)}
+    if not same or stream.errors:
+        raise AssertionError(f"the stream is not the telemetry: {out}")
+    del streamed, records, tele
+
+    # 3. Checkpoint and resume.
+    zero()
+    out["resume"] = {}
+    for label, scenario in (("paper-static", None),
+                            ("head-failure", "head-failure")):
+        full = on if scenario is None else run(scenario=scenario,
+                                               telemetry=True)
+        where = ckpt_root / label
+        part = run(scenario=scenario, telemetry=True, checkpoint_dir=where,
+                   checkpoint_every=4, stop_after=5)
+        res = run(scenario=scenario, telemetry=True, checkpoint_dir=where,
+                  checkpoint_every=4, resume=True)
+        torch.cuda.synchronize()
+        gap = histories_equal(res, full)
+        line = {"rounds_before_stop": int(part["train_loss"].shape[0]),
+                "resumed_from": res["checkpoint"]["resumed_from"],
+                "history": gap,
+                "telemetry_bitwise": telemetry_bitwise(res["telemetry"],
+                                                       full["telemetry"]),
+                "save_ms": [s * 1e3 for _, s in
+                            part["checkpoint"]["saves"]
+                            + res["checkpoint"]["saves"]],
+                "step_dir_bytes": sum(
+                    f.stat().st_size for f in
+                    (where / "step_00000004").iterdir())}
+        out["resume"][label] = line
+        if not (gap["bitwise"] and line["telemetry_bitwise"]
+                and line["rounds_before_stop"] == 8
+                and line["resumed_from"] == 8):
+            raise AssertionError(f"{label}: the resumed run is not the "
+                                 f"uninterrupted one: {line}")
+        del full, part, res
+    wrapper["resume_both"] = calls()
+    if not wrapper["resume_both"]["cwfl_round_guard"]:
+        raise AssertionError("the head-failure runs never called the "
+                             "guarded kernel")
+    del on, hist
+
+    # 4. The head-failure sweep with telemetry.
+    grid = list(get_scenario("snr-sweep").snr_grid)
+    c5 = dataclasses.replace(cfg, rounds=5)
+    B = MC_SEEDS * len(grid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    timers = PhaseTimers()
+    zero()
+    h = run_monte_carlo(*workload, c5, scenario="head-failure",
+                        topo_cfg=topo_cfg, seeds=MC_SEEDS, snr_grid=grid,
+                        timers=timers, device=DEVICE, telemetry=True)
+    torch.cuda.synchronize()
+    wrapper["head_failure_sweep"] = calls()
+    peak = torch.cuda.max_memory_allocated()
+    differ, fields = [], {}
+    for b in range(B):
+        s, g = divmod(b, len(grid))
+        one = run(dataclasses.replace(c5, seed=c5.seed + s, snr_db=grid[g]),
+                  scenario="head-failure", telemetry=True)
+        elem = nest_index(h["telemetry"], (s, g))
+        if not (telemetry_bitwise(one["telemetry"], elem)
+                and torch.equal(one["train_loss"], h["train_loss"][s, g])):
+            differ.append(b)
+            if len(fields) < 3:
+                fa, fb = telemetry_fields(one["telemetry"]), \
+                    telemetry_fields(elem)
+                fields[b] = sorted(k for k in fa if not torch.equal(
+                    fa[k], fb[k]))
+    out["sweep"] = {
+        "scenario": "head-failure", "trajectories": B, "rounds": c5.rounds,
+        "trajectory_rounds_per_s": B * (c5.rounds - 1)
+        / timers.seconds["execute"], "timers": timers.as_dict(),
+        "peak_mem_bytes": peak, "mem_at_start_bytes": at_start,
+        "elements_bitwise_lone": B - len(differ),
+        "elements_that_differ": differ, "fields_that_differ": fields,
+        "telemetry_shape_cluster_loss": list(h["telemetry"].cluster_loss
+                                             .shape)}
+    if differ:
+        raise AssertionError(f"sweep elements off their lone runs: {out}")
+    del h
+    torch.cuda.empty_cache()
+
+    # COTAF and decentralized (kernel 3, whose W their extras read).
+    out["baselines"] = {}
+    for strategy in ("cotaf", "decentralized"):
+        zero()
+        hb = run(dataclasses.replace(cfg, strategy=strategy, rounds=5),
+                 telemetry=True)
+        torch.cuda.synchronize()
+        wrapper[strategy] = calls()
+        fields = telemetry_fields(hb["telemetry"])
+        out["baselines"][strategy] = {
+            "finite": all(bool(torch.isfinite(v).all())
+                          for v in fields.values()),
+            "channel_uses": hb["telemetry"].channel_uses.tolist(),
+            "extras": sorted(hb["telemetry"].extras)}
+        if not out["baselines"][strategy]["finite"] or not (
+                wrapper[strategy]["ota_aggregate"]):
+            raise AssertionError(f"{strategy} with telemetry: {out}")
+        del hb
+
+    # 5. CIFAR CWFL-3 with telemetry.
+    cifar, ccfg = cifar_workload(rounds=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timers = PhaseTimers()
+    zero()
+    hc = run_rounds(*cifar, ccfg, device=DEVICE, telemetry=True,
+                    timers=timers)
+    torch.cuda.synchronize()
+    wrapper["cifar"] = calls()
+    out["cifar"] = {
+        "rounds": ccfg.rounds,
+        "steady_rounds_per_s": steady(timers, ccfg.rounds),
+        "timers": timers.as_dict(),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "telemetry_forward": "all 27 clients' shards at once (unchunked)",
+        "cluster_loss_last": hc["telemetry"].cluster_loss[-1].tolist(),
+        "test_acc": hc["test_acc"].tolist()}
+    if not all(bool(torch.isfinite(v).all()) for v in
+               telemetry_fields(hc["telemetry"]).values()):
+        raise AssertionError(f"non-finite CIFAR telemetry: {out['cifar']}")
+    del cifar, hc
+    torch.cuda.empty_cache()
+
+    # 6. One NCCL rank, client-sharded.
+    c6 = dataclasses.replace(cfg, rounds=6)
+    store = ROOT / "build" / f"obs-store-{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        kw = dict(device=DEVICE, shard="clients", telemetry=True)
+        loop = run_rounds(*workload, c6, mode="loop", **kw)
+        scan = run_rounds(*workload, c6, **kw)
+        where = ckpt_root / "clients"
+        run_rounds(*workload, c6, checkpoint_dir=where, checkpoint_every=2,
+                   stop_after=3, **kw)
+        res = run_rounds(*workload, c6, checkpoint_dir=where,
+                         checkpoint_every=2, resume=True, **kw)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    out["clients"] = {
+        "ranks": 1, "rounds": c6.rounds,
+        "scan_vs_loop": histories_equal(scan, loop),
+        "scan_vs_loop_telemetry_bitwise": telemetry_bitwise(
+            scan["telemetry"], loop["telemetry"]),
+        "resume_vs_scan": histories_equal(res, scan),
+        "resume_telemetry_bitwise": telemetry_bitwise(res["telemetry"],
+                                                      scan["telemetry"])}
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["wrapper_calls"] = wrapper
+    emit(out)
+    c = out["clients"]
+    if not (c["scan_vs_loop"]["bitwise"]
+            and c["scan_vs_loop_telemetry_bitwise"]
+            and c["resume_vs_scan"]["bitwise"]
+            and c["resume_telemetry_bitwise"]):
+        raise AssertionError(f"the client-sharded run with telemetry and "
+                             f"resume is not bitwise: {c}")
+    for label, counts in wrapper.items():
+        if not any(counts.values()):
+            raise AssertionError(f"{label}: no kernel was called: {counts}")
+    return wrapper
+
+
+def nest_index(obj, idx):
+    """A nest with every tensor indexed by ``idx``."""
+    from repro_torch.utils.nest import nest_map
+
+    return nest_map(lambda x: x[idx], obj)
+
+
+def stream_record_equal(a, b) -> bool:
+    """Two streamed telemetry records (nested dicts of numpy arrays) bit
+    for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(stream_record_equal(a[k], b[k]) for k in a))
+    a, b = np.atleast_1d(np.asarray(a)), np.atleast_1d(np.asarray(b))
+    return a.shape == b.shape and np.array_equal(a.view(np.uint8),
+                                                 b.view(np.uint8))
+
+
 def serial_build_seconds(sources) -> float:
     """Seconds of a cold build of ``sources`` with one ``nvcc`` after
     another, into a scratch directory: against the build phase's own
@@ -2905,6 +3312,14 @@ def main() -> None:
     batched_cwfl_row["launches"] = mc_launches["cwfl"]
     batched_ota_row["launches"] = mc_launches["cotaf"]
     batched_guard_row["launches"] = dynamic_sweep_phase(kmod, omod)
+    obs = obs_phase(kmod, omod)
+    cwfl_row["launches_obs"] = obs["paper_static_telemetry"]["cwfl_round"]
+    guard_row["launches_obs"] = obs["resume_both"]["cwfl_round_guard"]
+    batched_guard_row["launches_obs"] = obs["head_failure_sweep"][
+        "cwfl_round_guard"]
+    ota_c1_row["launches_obs"] = obs["cotaf"]["ota_aggregate"]
+    ota_c50_row["launches_obs"] = obs["decentralized"]["ota_aggregate"]
+    cwfl_cifar_row["launches_obs"] = obs["cifar"]["cwfl_round"]
     fa_row["launches"], params, batch, cfg, gate = serve_phase(fa)
     serve_profile_phase(params, batch, cfg)
     del params

@@ -60,16 +60,14 @@ def make_dataset(name: str, scale: BenchScale, seed: int, device=None
                 shards_per_client=spc, init=init, apply=apply, batch=batch)
 
 
-def run_setting(name: str, iid: bool, strategy: str, scale: BenchScale, *,
-                num_clusters: int = 3, mu_prox: float = 0.0,
-                seed: int = 0, snr_db: float = 40.0, device=None,
-                progress=None, mode=None, timers=None) -> dict:
-    """One Fig. 2 curve on ``device`` (``None`` = the GPU): data from
-    ``seed``, topology from ``seed + 7``, partition from ``seed + 1``, as
-    the JAX package seeds its keys.  ``progress(r, loss, acc)``: as
-    `run_federated`'s, as are ``mode`` and ``timers``.  Returns
-    `run_federated`'s history with
-    ``seconds_per_round`` (wall, over the whole run)."""
+def make_setting(name: str, iid: bool, strategy: str, scale: BenchScale,
+                 *, num_clusters: int = 3, mu_prox: float = 0.0,
+                 seed: int = 0, snr_db: float = 40.0, device=None):
+    """One Fig. 2 curve's inputs on ``device`` (``None`` = the GPU): data
+    from ``seed``, topology from ``seed + 7``, partition from ``seed + 1``,
+    as the JAX package seeds its keys.  Returns ``((init, apply, loss,
+    topology, xs, ys, x_test, y_test), cfg)``, the arguments of
+    `repro_torch.sim.run_rounds` and its `FLConfig`."""
     device = resolve_device(device)
     data = make_dataset(name, scale, seed, device=device)
     K = data["K"]
@@ -94,10 +92,25 @@ def run_setting(name: str, iid: bool, strategy: str, scale: BenchScale, *,
                    batch_size=data["batch"], num_clusters=num_clusters,
                    snr_db=snr_db, mu_prox=mu_prox,
                    eval_samples=scale.eval_samples, seed=seed)
+    return ((data["init"], apply, loss, topo, xs, ys, data["x_test"],
+             data["y_test"]), cfg)
+
+
+def run_setting(name: str, iid: bool, strategy: str, scale: BenchScale, *,
+                num_clusters: int = 3, mu_prox: float = 0.0,
+                seed: int = 0, snr_db: float = 40.0, device=None,
+                progress=None, mode=None, timers=None) -> dict:
+    """One Fig. 2 curve on ``device`` (``None`` = the GPU), its inputs
+    :func:`make_setting`'s.  ``progress(r, loss, acc)``: as
+    `run_federated`'s, as are ``mode`` and ``timers``.  Returns
+    `run_federated`'s history with ``seconds_per_round`` (wall, over the
+    whole run)."""
+    device = resolve_device(device)
+    workload, cfg = make_setting(name, iid, strategy, scale,
+                                 num_clusters=num_clusters, mu_prox=mu_prox,
+                                 seed=seed, snr_db=snr_db, device=device)
     t0 = time.perf_counter()
-    h = run_federated(data["init"], apply, loss, topo, xs, ys,
-                      data["x_test"], data["y_test"], cfg,
-                      progress=progress, device=device, mode=mode,
-                      timers=timers)
+    h = run_federated(*workload, cfg, progress=progress, device=device,
+                      mode=mode, timers=timers)
     h["seconds_per_round"] = (time.perf_counter() - t0) / scale.rounds
     return h

@@ -17,6 +17,12 @@ draws come from a stream of their own, as JAX folds them out of the run's
 key apart from the rest, so a static run draws what it drew before there
 were scenarios.  The seam hands out uniforms and normals, never decisions:
 the processes decide (`u < p` for a Bernoulli draw) themselves.
+
+A checkpointed run saves the draws' state (``state``/``set_state``):
+unlike JAX's keys, a round's torch draws cannot be rebuilt from its
+index, so a resume restores the generators where the checkpoint left
+them.  The draws are taken outside the captured round, so their state
+can be read between replays.
 """
 from __future__ import annotations
 
@@ -68,6 +74,13 @@ class Draws(Protocol):
 
     def fault_uniforms(self, round_: int, num_clients: int) -> FaultDraws:
         """The fault chains' six uniform draws."""
+
+    def state(self) -> dict[str, torch.Tensor]:
+        """What a resumed run needs to draw on where this one stands (a
+        checkpoint saves it); empty for draws indexed by round."""
+
+    def set_state(self, state: dict[str, torch.Tensor]) -> None:
+        """Continue from a :meth:`state`."""
 
 
 class TorchDraws:
@@ -142,6 +155,19 @@ class TorchDraws:
         return FaultDraws(crash=self._uniform(K), recover=self._uniform(K),
                           enter=self._uniform(), leave=self._uniform(),
                           hit=self._uniform(K), fade=self._uniform())
+
+    def _generators(self) -> dict[str, torch.Generator]:
+        return {"state": self._state, "init": self._init,
+                "rounds": self._rounds, "scenario": self._scenario}
+
+    def state(self) -> dict[str, torch.Tensor]:
+        """Each generator's ``get_state()`` (a CUDA generator's: its seed
+        and Philox offset), as uint8 tensors on the CPU."""
+        return {k: g.get_state() for k, g in self._generators().items()}
+
+    def set_state(self, state: dict[str, torch.Tensor]) -> None:
+        for k, g in self._generators().items():
+            g.set_state(state[k])
 
 
 class RoundDraws(NamedTuple):

@@ -5,9 +5,11 @@ over a ``torch.distributed`` process group, one process a rank.
   trajectory grid is flattened seed-major, padded up to the group's size
   by repeating its last entry, and each rank runs its contiguous chunk as
   one batched sweep (`repro_torch.sim.engine._run_sweep`), under any
-  registered scenario; the metrics and a dynamic scenario's records are
-  gathered once at the end.  Trajectories are independent, so the sweep
-  needs no collective before the gather.
+  registered scenario; the metrics, a dynamic scenario's records and the
+  telemetry are gathered once at the end.  Trajectories are independent,
+  so the sweep needs no collective before the gather.  A stream is scoped
+  to rank 0's chunk (`RoundStream.scope_to_trajectories`), JAX's "rank-0
+  emit".
 
 * ``run_rounds_client_sharded`` (``run_rounds(..., shard="clients")``):
   within ONE large-K trajectory the stacked client axis is split over the
@@ -32,7 +34,12 @@ unsharded engine's: ``mode="loop"`` runs it eagerly, ``mode="scan"`` (the
 default) through the engine's `_Replayer` — on a CUDA device an eager
 first round (which creates the NCCL communicator, on the capture's
 stream), then one CUDA graph a round with the round's collectives inside
-it; on the CPU (``gloo``) every round eagerly.
+it; on the CPU (``gloo``) every round eagerly.  Its telemetry rides the
+same round: the per-cluster losses one more ``all_reduce``, each head's
+drift computed on the rank that owns it and summed over the ranks, the
+rest from the sync's replicated internals (JAX's ``_CLIENT_TELE_EXTRAS``).
+Its checkpoints hold the whole carry, its rows gathered over the ranks:
+rank 0 alone writes them, every rank loads one and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -44,13 +51,19 @@ import torch.distributed as dist
 from repro_torch.core import cwfl
 from repro_torch.core.topology import Topology
 from repro_torch.models.small import accuracy
+from repro_torch.obs.stream import LiveTap, emit_sweep
+from repro_torch.obs.telemetry import (RoundTelemetry, init_ledger,
+                                       per_client_dim,
+                                       stacked_consensus_drift)
 from repro_torch.sim.draws import Draws, RoundDraws, TorchDraws, take_round
-from repro_torch.sim.engine import (_history, _on, _phase, _prepare,
-                                    _reference_numerics, _Replayer,
-                                    _run_sweep)
+from repro_torch.sim.engine import (_Checkpoints, _history, _on, _phase,
+                                    _prepare, _reference_numerics,
+                                    _run_sweep, check_obs_args,
+                                    checkpoint_manifest, scan_rounds)
 from repro_torch.sim.scenarios import Scenario, get_scenario
 from repro_torch.strategies import get_strategy
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.nest import nest_map
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_size
 
 
@@ -79,11 +92,13 @@ def make_sharded_sweep_fn(init_fn: Callable, apply_fn: Callable,
                           x_test: torch.Tensor, y_test: torch.Tensor, cfg,
                           scenario: Scenario, topo_cfg, strategy, n_pad: int,
                           group=None, draws_of: Optional[Callable] = None,
-                          device=None, timers=None) -> Callable:
+                          device=None, timers=None,
+                          telemetry: bool = False) -> Callable:
     """The sweep over ``n_pad`` flattened trajectories (a multiple of the
-    group's size): ``f(seed_flat, snr_flat) -> (loss, acc, records)``,
-    loss and accuracy (n_pad, T) and a dynamic scenario's records
-    (n_pad, T[, C]) or ``None``, on every rank.  Rank r runs trajectories
+    group's size): ``f(seed_flat, snr_flat) -> (loss, acc, records,
+    telemetry)``, loss and accuracy (n_pad, T), a dynamic scenario's
+    records (n_pad, T[, C]) or ``None`` and the `RoundTelemetry` (leading
+    n_pad, T) or ``None``, on every rank.  Rank r runs trajectories
     [r·n_pad/n, (r+1)·n_pad/n) as one batch on ``device`` (the seeds of
     its chunk drawn by ``draws_of(seed)``, default `TorchDraws`; a seed's
     trajectories share one `Draws`), then the chunks are gathered."""
@@ -99,15 +114,18 @@ def make_sharded_sweep_fn(init_fn: Callable, apply_fn: Callable,
         seeds = list(dict.fromkeys(seed_flat[mine]))
         draws = [draws_of(s) if draws_of is not None
                  else TorchDraws(s, device) for s in seeds]
-        loss, acc, records = _run_sweep(
+        loss, acc, records, tele = _run_sweep(
             init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test,
             cfg, scenario, topo_cfg, strategy, seeds,
             [seeds.index(s) for s in seed_flat[mine]], snr_flat[mine],
-            draws, device, timers)
+            draws, device, timers, telemetry=telemetry)
         if records is not None:
             records = {k: _gather_rows(v, group)
                        for k, v in sorted(records.items())}
-        return _gather_rows(loss, group), _gather_rows(acc, group), records
+        if tele is not None:
+            tele = nest_map(lambda x: _gather_rows(x, group), tele)
+        return (_gather_rows(loss, group), _gather_rows(acc, group), records,
+                tele)
 
     return sweep
 
@@ -120,15 +138,17 @@ def monte_carlo_sharded(init_fn: Callable, apply_fn: Callable,
                         seeds: Sequence[int],
                         snr_grid: Optional[Sequence[float]], group=None,
                         timers=None, draws: Optional[Sequence] = None,
-                        device=None):
+                        device=None, telemetry: bool = False, stream=None):
     """The seeds × ``snr_grid`` sweep (``snr_grid`` ``None``: the seeds at
     ``cfg.snr_db``) under ``scenario`` split over the ranks of ``group``:
     flattened seed-major (pair i = (seeds[i // G], grid[i % G]), the
     order of the unsharded sweep), padded to the group's size, a chunk a
     rank (:func:`make_sharded_sweep_fn`).  ``draws``: one `Draws` for each
     of ``seeds``, or ``None``.  Called by every rank; returns ``(loss,
-    acc, records)``, loss and accuracy (S·G, T) and the records (S·G,
-    T[, C]) or ``None``, the same on every rank."""
+    acc, records, telemetry)``, loss and accuracy (S·G, T), the records
+    (S·G, T[, C]) or ``None`` and the `RoundTelemetry` (leading S·G, T)
+    or ``None``, the same on every rank.  ``stream``: each trajectory's
+    records after the run, scoped to rank 0's chunk."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             "shard='mc' runs over a torch.distributed process group, one "
@@ -147,27 +167,46 @@ def monte_carlo_sharded(init_fn: Callable, apply_fn: Callable,
         init_fn, apply_fn, loss_fn, topology, xs, ys, x_test, y_test, cfg,
         scenario, topo_cfg, strategy, n_pad, group=group,
         draws_of=None if by_seed is None else by_seed.__getitem__,
-        device=device, timers=timers)
-    loss, acc, records = sweep(_pad_to(seed_flat, n_pad),
-                               _pad_to(snr_flat, n_pad))
+        device=device, timers=timers, telemetry=telemetry)
+    loss, acc, records, tele = sweep(_pad_to(seed_flat, n_pad),
+                                     _pad_to(snr_flat, n_pad))
+    loss, acc = loss[:n], acc[:n]
     if records is not None:
         records = {k: v[:n] for k, v in records.items()}
-    return loss[:n], acc[:n], records
+    if tele is not None:
+        tele = nest_map(lambda x: x[:n], tele)
+    if stream is not None:
+        # Rank-0 emit: rank 0 runs the first n_pad / world trajectories.
+        mine = min(n_pad // world, n)
+        stream.scope_to_trajectories(zip(seed_flat[:mine], snr_flat[:mine]))
+        emit_sweep(stream, seed_flat, snr_flat, loss, acc, tele,
+                   rank=dist.get_rank(group))
+    return loss, acc, records, tele
 
 
 # ---------------------------------------------------------------------------
 # Client-parallel execution of one trajectory (shard="clients").
 # ---------------------------------------------------------------------------
 
+#: The extras of the client-sharded round's telemetry (JAX's
+#: ``_CLIENT_TELE_EXTRAS``): CWFL's hook's, from the sync's own internals.
+CLIENT_TELE_EXTRAS = ("client_power", "noise_energy", "phase1_noise_std",
+                      "phase2_noise_std", "power_budget_frac",
+                      "precode_scale", "tx_power")
+
+
 def _client_sharded_sync(stacked_local, state: cwfl.CWFLState, noise,
-                         group=None):
+                         group=None, with_telemetry: bool = False):
     """One CWFL sync with the K clients split over ``group``; this rank
     holds ``stacked_local`` (leaves (K/n, ...)), the clients
     ``rank·K/n ... (rank+1)·K/n - 1``.
 
     ``noise``: ``(unit1, unit2)``, two (C, d) unit-normal matrices in the
     flat leaf order, the same on every rank.  Returns ``(new_local,
-    consensus)``; the consensus is the same on every rank."""
+    consensus)``; the consensus is the same on every rank.
+    ``with_telemetry`` adds a third element, the extras of
+    `CLIENT_TELE_EXTRAS`, computed from the gathered powers and the
+    round's coefficients (the same on every rank)."""
     leaves, treedef = tree_flatten(stacked_local)
     kl = leaves[0].shape[0]
     rank, world = dist.get_rank(group), dist.get_world_size(group)
@@ -179,8 +218,9 @@ def _client_sharded_sync(stacked_local, state: cwfl.CWFLState, noise,
     sq_local = torch.sum(flat * flat, dim=1)
     gathered = [torch.empty_like(sq_local) for _ in range(world)]
     dist.all_gather(gathered, sq_local, group=group)
+    mean_sq = torch.cat(gathered) / d
     A, eff_std1, B, kappa, m_back = cwfl.round_coefficients(
-        state, mean_sq=torch.cat(gathered) / d)
+        state, mean_sq=mean_sq)
     rows = slice(rank * kl, (rank + 1) * kl)
     unit1, unit2 = noise
 
@@ -196,7 +236,60 @@ def _client_sharded_sync(stacked_local, state: cwfl.CWFLState, noise,
     # Phase 3: the error-free downlink, this rank's clients only.
     new_flat = m_back[rows] @ theta_bar                            # (K/n, d)
     cons_flat = torch.mean(theta_bar, dim=0)                       # (d,)
-    return cwfl._flat_unpack(new_flat, cons_flat, leaves, treedef, kl)
+    new, cons = cwfl._flat_unpack(new_flat, cons_flat, leaves, treedef, kl)
+    if not with_telemetry:
+        return new, cons
+    pre = cwfl.precode_scale(state, mean_sq)
+    tx_power = ((1.0 - state.plan.head_mask)
+                * ((state.client_power / state.total_power) * pre ** 2)
+                * mean_sq)
+    extras = {
+        "precode_scale": pre,
+        "client_power": state.client_power,
+        "tx_power": tx_power,
+        "power_budget_frac": torch.sum(tx_power) / state.total_power,
+        "phase1_noise_std": eff_std1,
+        "phase2_noise_std": kappa,
+        "noise_energy": d * (torch.sum(eff_std1 ** 2)
+                             + torch.sum(kappa ** 2)),
+    }
+    return new, cons, extras
+
+
+def _client_sharded_telemetry(state: cwfl.CWFLState, tele_losses, new_local,
+                              consensus, extras: dict, ledger: dict,
+                              rows: slice, num_clients: int, uses: float,
+                              group=None):
+    """The client-sharded round's `RoundTelemetry` and ledger: the
+    per-cluster losses summed over the ranks, each head's drift computed
+    on the rank that holds its row and summed over the ranks (zeros
+    elsewhere), the rest replicated."""
+    plan = state.plan
+    dev = tele_losses.device
+    counts = torch.clamp(plan.membership.sum(dim=1), min=1.0)
+    cluster = plan.membership[:, rows] @ tele_losses
+    dist.all_reduce(cluster, op=dist.ReduceOp.SUM, group=group)
+    kl = rows.stop - rows.start
+    drift_rows = stacked_consensus_drift(new_local, consensus)   # (K/n,)
+    own = (plan.heads >= rows.start) & (plan.heads < rows.stop)
+    drift = torch.where(
+        own, drift_rows[torch.clamp(plan.heads - rows.start, 0, kl - 1)],
+        0.0)
+    dist.all_reduce(drift, op=dist.ReduceOp.SUM, group=group)
+    d = per_client_dim(new_local)
+    used = torch.full((), float(uses), dtype=torch.float32, device=dev)
+    new_ledger = {"uses": ledger["uses"] + used,
+                  "symbols": ledger["symbols"] + used * d}
+    tele = RoundTelemetry(
+        cluster_loss=cluster / counts,
+        participants=torch.full((), float(num_clients), dtype=torch.float32,
+                                device=dev),
+        consensus_drift=drift, channel_uses=used,
+        cum_channel_uses=new_ledger["uses"],
+        cum_symbols=new_ledger["symbols"],
+        reclustered=torch.zeros((), dtype=torch.float32, device=dev),
+        extras=extras)
+    return tele, new_ledger
 
 
 def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
@@ -208,8 +301,9 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
                               draws: Optional[Draws] = None, device=None, *,
                               mode: str = "scan", timers=None,
                               telemetry: bool = False,
-                              checkpoint_dir: Optional[str] = None,
+                              checkpoint_dir=None, checkpoint_every: int = 0,
                               resume: bool = False,
+                              resume_step: Optional[int] = None,
                               stop_after: Optional[int] = None,
                               stream=None) -> dict[str, Any]:
     """One trajectory with the K clients split over the ranks of ``group``
@@ -224,16 +318,17 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
     an eager loop, which takes ``progress(r, loss, acc)`` (called on every
     rank).  Both give the same history.  ``timers``: as `run_rounds`'s.
     Static CWFL scenarios only, as JAX's client-sharded run.
-    ``telemetry``, ``checkpoint_dir``/``resume``/``stop_after`` and
-    ``stream`` are not ported (ROADMAP §1 item 5) and raise."""
-    for name, value in (("telemetry", telemetry),
-                        ("checkpoint_dir", checkpoint_dir),
-                        ("resume", resume), ("stop_after", stop_after),
-                        ("stream", stream)):
-        if value not in (None, False):
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP §1 item 5: "
-                f"observability and checkpoints)")
+
+    ``telemetry``, ``checkpoint_dir``/``checkpoint_every``/``resume``/
+    ``resume_step``/``stop_after`` and ``stream``: as `run_rounds`'s, with
+    JAX's argument checks.  The checkpoints hold the whole carry (rank 0
+    writes them; every rank loads one and keeps its rows), the manifest's
+    strategy ``<name>@clients``, so sharded and unsharded checkpoints are
+    never spliced.  The stream takes rank 0's records; rank 0's monitor
+    decides an abort for every rank."""
+    check_obs_args(mode=mode, telemetry=telemetry, timers=timers,
+                   checkpoint_dir=checkpoint_dir, resume=resume,
+                   stop_after=stop_after, stream=stream)
     if isinstance(scenario, str):
         scenario = get_scenario(scenario)
     scenario = scenario or Scenario()
@@ -275,7 +370,10 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
                            consensus)
         carry0 = {"stacked": stacked, "opt": optimizer.init(stacked),
                   "consensus": consensus}
+        if telemetry:
+            carry0["obs"] = init_ledger(device)
         d = tree_size(consensus)
+        uses = strategy.channel_uses(K, num_clusters=cfg.num_clusters)
 
         def round_draws(t: int) -> RoundDraws:
             # The global draws, of which this rank takes its clients' rows.
@@ -289,17 +387,25 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
             trained, opt_state, client_loss = local_run(
                 carry["stacked"], carry["opt"], xs_l, ys_l, rd.idx)
             with torch.no_grad():
-                new, cons = _client_sharded_sync(trained, state, rd.noise,
-                                                 group)
+                new, cons, *extras = _client_sharded_sync(
+                    trained, state, rd.noise, group,
+                    with_telemetry=telemetry)
                 acc = accuracy(apply_fn(cons, x_ev), y_ev)
                 total = torch.sum(client_loss).reshape(1)
                 dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-            return ({"stacked": new, "opt": opt_state, "consensus": cons},
-                    {"loss": total[0] / K, "acc": acc})
+                new_carry = {"stacked": new, "opt": opt_state,
+                             "consensus": cons}
+                out = {"loss": total[0] / K, "acc": acc}
+                if telemetry:
+                    # A fresh full-shard forward on this rank's clients.
+                    out["telemetry"], new_carry["obs"] = \
+                        _client_sharded_telemetry(
+                            state, loss_fn(trained, xs_l, ys_l), new, cons,
+                            extras[0], carry["obs"], rows, K, uses, group)
+            return new_carry, out
 
-        outs = []
         if mode == "loop":
-            carry = carry0
+            outs, carry = [], carry0
             for t in range(cfg.rounds):
                 with _phase(timers, "execute"):
                     carry, out = body(carry, round_draws(t), t)
@@ -308,12 +414,61 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
                 outs.append(out)
                 if progress is not None:
                     progress(t + 1, float(out["loss"]), float(out["acc"]))
-            consensus = carry["consensus"]
-        else:
-            rep = _Replayer(body, carry0, device, timers)
-            for t in range(cfg.rounds):
-                outs.append(rep.run(t, (), lambda t=t: round_draws(t)))
-            rep.finish()
-            consensus = rep.state()["consensus"]
-        return _history([o["loss"] for o in outs], [o["acc"] for o in outs],
-                        consensus)
+            return _history(outs, carry["consensus"])
+
+        ckpt = None
+        if checkpoint_dir is not None:
+            ckpt = _sharded_checkpoints(
+                checkpoint_dir, checkpoint_every, cfg, scenario, strategy,
+                resume=resume, resume_step=resume_step,
+                stop_after=stop_after, draws=draws, carry0=carry0, K=K,
+                rows=rows, group=group, device=device)
+        tap = (LiveTap(stream, seed=cfg.seed, snr_db=cfg.snr_db,
+                       device=device, rank=rank)
+               if stream is not None else None)
+        carry, outs = scan_rounds(body, carry0, device, cfg.rounds,
+                                  lambda t: (), round_draws, timers=timers,
+                                  ckpt=ckpt, tap=tap)
+        history = _history(outs, carry["consensus"])
+        if ckpt is not None:
+            history["checkpoint"] = ckpt.record()
+        return history
+
+
+def _sharded_checkpoints(directory, every: int, cfg, scenario, strategy, *,
+                         resume: bool, resume_step: Optional[int],
+                         stop_after: Optional[int], draws, carry0: dict,
+                         K: int, rows: slice, group, device) -> _Checkpoints:
+    """The client-sharded run's `_Checkpoints`: the whole carry on disk
+    (this rank's rows of ``"stacked"`` gathered over the ranks), written by
+    rank 0 alone, each rank keeping its rows of a loaded one; the manifest
+    validated on every rank, then written by rank 0."""
+    rank = dist.get_rank(group)
+    name = strategy.name + "@clients"
+    checkpoint_manifest(directory, cfg, scenario, name, resume, write=False)
+    dist.barrier(group=group)
+    if rank == 0:
+        checkpoint_manifest(directory, cfg, scenario, name, resume)
+    dist.barrier(group=group)
+
+    def to_disk(carry: dict) -> dict:
+        return dict(carry, stacked=tree_map(lambda x: _gather_rows(x, group),
+                                            carry["stacked"]))
+
+    def from_disk(carry: dict) -> dict:
+        return dict(carry, stacked=tree_map(lambda x: x[rows],
+                                            carry["stacked"]))
+
+    def agree(stop: bool) -> bool:
+        flag = torch.tensor([float(stop)], device=device)
+        dist.broadcast(flag, src=dist.get_global_rank(group, 0)
+                       if group is not None else 0, group=group)
+        return bool(flag.item())
+
+    return _Checkpoints(
+        directory, every, cfg.rounds, resume=resume, resume_step=resume_step,
+        stop_after=stop_after, draws=draws,
+        template=dict(carry0, stacked=tree_map(
+            lambda x: x.new_empty((K,) + x.shape[1:]), carry0["stacked"])),
+        to_disk=to_disk, from_disk=from_disk, writer=rank == 0,
+        barrier=lambda: dist.barrier(group=group), agree=agree)

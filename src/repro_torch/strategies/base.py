@@ -14,10 +14,11 @@ scenario the sweep maps ``state_from_view``, ``on_head_failure``,
 ``recluster`` and ``receive_mask`` over its trajectories with
 ``torch.func.vmap`` (`repro_torch.utils.nest.nest_vmap`), so these hooks
 must be pure functions of their tensors: no host sync, no Python branch
-on a tensor's value.  Every front door resolves a strategy by name
-through :func:`get_strategy`.  Capability flags say which executors and
-which scenario hooks apply to a strategy.  JAX's ``telemetry`` hook is
-not ported.
+on a tensor's value.  The ``telemetry`` hook reports a round's internals
+(`repro_torch.obs.telemetry`); a sweep calls it for each trajectory on
+its own slices.  Every front door resolves a strategy by name through
+:func:`get_strategy`.  Capability flags say which executors and which
+scenario hooks apply to a strategy.
 """
 from __future__ import annotations
 
@@ -148,6 +149,34 @@ class Strategy:
         Default: an orchestrator-free genie (FedAvg), zero."""
         del num_clients, num_clusters, participants
         return 0
+
+    def telemetry(self, state: State, *, losses, stacked, new_stacked,
+                  consensus, mask=None) -> dict:
+        """The round's strategy internals: ``{"cluster_loss": (C',),
+        "participants": (), "consensus_drift": (C',), "extras": {str:
+        tensor}}``, shapes fixed across rounds.  ``losses`` is the engine's
+        (K,) full-shard telemetry loss (a fresh forward on the locally
+        trained params, never the round's minibatch losses);
+        ``stacked``/``new_stacked`` the pre- and post-sync stacks;
+        ``consensus`` the post-sync global model; ``mask`` the round's
+        (K,) participation or ``None``.  It runs in the captured round: no
+        host sync.  Default: one global
+        site — mean loss, mask-summed participants, mean drift
+        ‖θ_k − θ̄‖."""
+        import torch
+
+        from repro_torch.obs.telemetry import stacked_consensus_drift
+
+        del state, stacked
+        participants = (
+            torch.full((), float(losses.shape[0]), dtype=torch.float32,
+                       device=losses.device)
+            if mask is None else torch.sum(mask).to(torch.float32))
+        drift = torch.mean(stacked_consensus_drift(new_stacked, consensus))
+        return {"cluster_loss": torch.mean(losses)[None],
+                "participants": participants,
+                "consensus_drift": drift[None],
+                "extras": {}}
 
     def effective_mu_prox(self, cfg_mu: float) -> float:
         """FedProx µ_p of the local runner: an explicit ``FLConfig.mu_prox``

@@ -11,12 +11,16 @@
 * ``decentralized`` — Metropolis–Hastings consensus over G(V, L); absence
   is graph pruning, not MAC masking (isolated nodes keep their params).
 
-JAX's ``telemetry`` hooks are not ported.
+CWFL, COTAF and decentralized report their internals through the
+``telemetry`` hook (the prox variants inherit theirs); FedAvg reports the
+default single global site.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import ClassVar, Optional
+
+import torch
 
 from repro_torch.core import baselines
 from repro_torch.core import channel as ch
@@ -100,6 +104,56 @@ class CWFLStrategy(Strategy):
         C = num_clusters
         return C * (C - 1) + C
 
+    def telemetry(self, state, *, losses, stacked, new_stacked, consensus,
+                  mask=None):
+        from repro_torch.obs.telemetry import (per_client_dim,
+                                               stacked_consensus_drift)
+
+        plan = state.plan
+        counts = torch.clamp(plan.membership.sum(dim=1), min=1.0)
+        part = cwfl.participation_weights(state, mask)
+        participants = (torch.full((), float(state.num_clients),
+                                   dtype=torch.float32, device=losses.device)
+                        if part is None else torch.sum(part))
+        # The coefficients this round transmitted with: the eq. (5)
+        # precode scales and the phase-1/2 equivalent receiver-noise stds.
+        mean_sq = cwfl.per_client_mean_sq(stacked)
+        _, eff_std1, _, kappa, _ = cwfl.round_coefficients(
+            state, stacked, mask=mask, mean_sq=mean_sq)
+        pre = cwfl.precode_scale(state, mean_sq)
+        # Per-channel-use power each member puts on the MAC: amplitude² =
+        # (p_k · pre_k)² per unit-power symbol, × E‖θ‖²/d.  Heads never
+        # cross the channel (virtual clients).
+        member = 1.0 - plan.head_mask
+        amp2 = (state.client_power / state.total_power) * pre ** 2
+        tx_power = member * amp2 * mean_sq
+        if part is not None:
+            tx_power = tx_power * part
+        d = per_client_dim(stacked)
+        return {
+            "cluster_loss": (plan.membership @ losses) / counts,
+            "participants": participants,
+            "consensus_drift": stacked_consensus_drift(
+                new_stacked, consensus)[plan.heads],
+            "extras": {
+                "precode_scale": pre,
+                "client_power": state.client_power,
+                "tx_power": tx_power,
+                "power_budget_frac": torch.sum(tx_power) / state.total_power,
+                "phase1_noise_std": eff_std1,
+                "phase2_noise_std": kappa,
+                "noise_energy": d * (torch.sum(eff_std1 ** 2)
+                                     + torch.sum(kappa ** 2)),
+            },
+        }
+
+
+def _mac_std(noise_std: torch.Tensor, total_power: float) -> torch.Tensor:
+    """A receiver's noise std per unit of transmit power, σ/sqrt(P), with
+    sqrt(P) in f32 as JAX's ``jnp.sqrt`` of a Python float."""
+    return noise_std / torch.sqrt(cwfl.f32_scalar(total_power,
+                                                  noise_std.device))
+
 
 @dataclasses.dataclass(frozen=True)
 class COTAFStrategy(Strategy):
@@ -146,6 +200,25 @@ class COTAFStrategy(Strategy):
         # One shared OTA MAC to the server, however many transmit on it.
         del num_clients, num_clusters, participants
         return 1
+
+    def telemetry(self, state, *, losses, stacked, new_stacked, consensus,
+                  mask=None):
+        t = super().telemetry(state, losses=losses, stacked=stacked,
+                              new_stacked=new_stacked, consensus=consensus,
+                              mask=mask)
+        part = baselines.cotaf_participation(state, mask)
+        if part is not None:
+            t["participants"] = torch.sum(part)
+        # No server is decided by the state's structure, never by a read.
+        t["extras"] = {
+            "server": (torch.full((), -1.0, dtype=torch.float32,
+                                  device=losses.device)
+                       if state.server is None
+                       else state.server.to(torch.float32)),
+            "client_power": state.client_power,
+            "mac_noise_std": _mac_std(state.noise_std, state.total_power),
+        }
+        return t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,6 +302,21 @@ class DecentralizedStrategy(Strategy):
         del num_clusters
         p = num_clients if participants is None else participants
         return p * (p - 1)
+
+    def telemetry(self, state, *, losses, stacked, new_stacked, consensus,
+                  mask=None):
+        t = super().telemetry(state, losses=losses, stacked=stacked,
+                              new_stacked=new_stacked, consensus=consensus,
+                              mask=mask)
+        W = state.mixing
+        off = W * (1.0 - torch.eye(W.shape[0], device=W.device))
+        t["extras"] = {
+            "active_links": torch.sum(off > 0).to(torch.float32),
+            "mean_self_weight": torch.mean(torch.diagonal(W)),
+            "receive_noise_std": torch.sqrt(torch.sum(off ** 2, dim=1))
+            * _mac_std(state.noise_std, state.total_power),
+        }
+        return t
 
 
 #: Paper §V's FedProx coefficient for the *-Prox curves.

@@ -53,11 +53,12 @@ def nest_map(fn: Callable, obj):
     return nest_rebuild(obj, iter([fn(x) for x in nest_tensors(obj)]))
 
 
-def nest_stack(nests: Sequence):
-    """Nests of one structure as one, each tensor stacked along a new
-    leading axis; the constants are the first nest's."""
+def nest_stack(nests: Sequence, dim: int = 0):
+    """Nests of one structure as one, each tensor stacked along a new axis
+    ``dim`` (default: leading); the constants are the first nest's."""
     columns = zip(*(nest_tensors(x) for x in nests))
-    return nest_rebuild(nests[0], iter([torch.stack(c) for c in columns]))
+    return nest_rebuild(nests[0], iter([torch.stack(c, dim=dim)
+                                        for c in columns]))
 
 
 def nest_vmap(fn: Callable, *args):

@@ -47,6 +47,7 @@ from repro_torch.core.topology import Topology, TopologyConfig
 from repro_torch.dist import fl_integration as tfl
 from repro_torch.dist import ota_collectives as toc
 from repro_torch.models import small as tsmall
+from repro_torch.obs import RoundStream
 from repro_torch.sim import Scenario, run_rounds
 from repro_torch.sim.processes import ChannelProcessConfig
 from repro_torch.sim.sharded import (_client_sharded_sync,
@@ -661,8 +662,10 @@ def test_client_sharded_across_two_ranks(fl_workload, tmp_path):
 def test_client_sharded_guards(fl_workload, tmp_path):
     """JAX's guards, checked before any collective: another shard than
     "clients", a dynamic scenario, a strategy without the capability
-    flag; then no process group and the unported options.  In a group of
-    one rank the default scanned mode runs, bitwise the loop."""
+    flag; then no process group, and JAX's argument checks of telemetry,
+    checkpoints and the stream.  In a group of one rank the default
+    scanned mode runs, bitwise the loop, and so do telemetry and a
+    checkpoint (tests/test_torch_resume.py resumes over two ranks)."""
     topo, data = fl_workload
     init, apply, loss = _mlp()
     ttopo = topology_from_arrays(np.asarray(topo.positions),
@@ -694,9 +697,17 @@ def test_client_sharded_guards(fl_workload, tmp_path):
         scan = run_rounds(*args, cfg, device="cpu", shard="clients")
         loop = run_rounds(*args, cfg, device="cpu", shard="clients",
                           mode="loop")
+        tele = run_rounds(*args, cfg, device="cpu", shard="clients",
+                          telemetry=True,
+                          checkpoint_dir=str(tmp_path / "ckpt"))
     assert torch.equal(scan["train_loss"], loop["train_loss"])
     assert torch.equal(scan["test_acc"], loop["test_acc"])
-    for kw in ({"telemetry": True}, {"checkpoint_dir": "ckpt"},
-               {"resume": True}, {"stop_after": 1}, {"stream": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+    assert torch.equal(tele["train_loss"], loop["train_loss"])
+    assert tele["telemetry"].cluster_loss.shape == (1, C3)
+    assert tele["checkpoint"]["saves"][0][0] == 1
+    for kw, match in (({"resume": True}, "checkpoint_dir"),
+                      ({"stop_after": 1}, "checkpoint_dir"),
+                      ({"stream": RoundStream()}, "telemetry=True"),
+                      ({"checkpoint_dir": "ckpt", "mode": "loop"}, "loop")):
+        with pytest.raises(ValueError, match=match):
             run_rounds_client_sharded(*args, cfg, device="cpu", **kw)

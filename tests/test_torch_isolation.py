@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, nor
-``chip_smoke.py``, nor the examples ``quickstart_torch.py`` and
-``paper_fig2_torch.py`` imports ``jax`` or the JAX package ``repro``."""
+``chip_smoke.py``, nor the examples ``quickstart_torch.py``,
+``paper_fig2_torch.py``, ``run_scenario_torch.py`` and
+``obs_report_torch.py`` imports ``jax`` or the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "paper_fig2_torch.py"]
+    ROOT / "examples" / "paper_fig2_torch.py",
+    ROOT / "examples" / "run_scenario_torch.py",
+    ROOT / "examples" / "obs_report_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -27,14 +30,17 @@ def _imports(path: Path):
 
 def test_the_checked_files_cover_every_slice():
     """The scan covers the modules each slice added, the compiled
-    trajectory's and the sweep's among them."""
+    trajectory's, the sweep's and the observability's among them."""
     checked = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     assert {"sim/engine.py", "sim/draws.py", "sim/sharded.py",
             "obs/__init__.py", "obs/profiling.py", "core/cwfl.py",
             "core/baselines.py", "core/clustering.py", "training/local.py",
             "strategies/base.py", "strategies/builtin.py",
             "kernels/cwfl_round.py", "kernels/ota_aggregate.py",
-            "kernels/ref.py"} <= checked
+            "kernels/ref.py", "checkpoint/__init__.py",
+            "checkpoint/ckpt.py", "obs/ledger.py", "obs/manifest.py",
+            "obs/monitor.py", "obs/sink.py", "obs/stream.py",
+            "obs/telemetry.py"} <= checked
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

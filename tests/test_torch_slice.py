@@ -75,6 +75,12 @@ class JaxDraws:
             self.k_agg[round_], self.leaves, rows,
             jnp.ones((rows,), jnp.float32))))
 
+    def state(self):
+        return {}     # indexed by round: nothing to restore
+
+    def set_state(self, state):
+        del state
+
 
 @pytest.fixture(scope="module")
 def workload():
