@@ -150,7 +150,22 @@ Phases, each printed as one JSON object per line:
    ``head-failure``, the window on the rounds after the first, and one
    CIFAR CWFL-3 round at full width; device time by kernel (for CIFAR
    also by kind: grouped convolutions forward and backward, gemms, the
-   round kernel), launches and the device's idle share.
+   round kernel), launches and the device's idle share;
+11. lm_train — LM training: the attention backward kernel
+   (``flash_attention_bwd.cu``) against its plain version at BWD_SHAPES
+   (Qwen2.5-3B's and Gemma-2's layers, a ragged GQA shape, every head
+   dim, f32 and bf16), on the forward kernels' own o and row statistics
+   (their lse against the plain forward's, o bitwise the serve path's),
+   every output poisoned with NaN, a second launch bitwise the first,
+   timed against its bounds, the plain version and, at cap 0, SDPA's
+   backward; the reduced Gemma-2 trained on the card against the CPU on
+   the same params, tokens and noise (two shard-mode steps at M = 2, two
+   replica steps at K = 4, C = 2 through ``cwfl_round``, one bf16 shard
+   step); Qwen2.5-3B at full width, 3 shard-mode steps of 4 × 4,096
+   tokens (the first CE near ln V, the second on the same batch lower;
+   seconds a step, tokens/s, peak memory, 144 launches of each attention
+   kernel a step, one profiled step); and
+   ``examples/train_lm_cwfl_torch.py --steps 300`` under its gate.
 
 The reference phase runs its card and CPU runs in loop mode (its count
 of dead rows reads every sync on the host); the small CNN's reference
@@ -160,6 +175,7 @@ the ``{"kernels": [...]}`` summary and
 script exits non-zero; it needs a CUDA device and has no CPU path.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -3195,6 +3211,452 @@ def stream_record_equal(a, b) -> bool:
                                                  b.view(np.uint8))
 
 
+# ---------------------------------------------------------------------------
+# LM training: the attention backward, the train steps, Qwen2.5-3B.
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = (
+    # label, B, H, KV, S, D, dtype, window, cap
+    ("qwen", 1, 16, 2, 4096, 128, torch.float32, 0, 0.0),
+    ("qwen_bf16", 1, 16, 2, 4096, 128, torch.bfloat16, 0, 0.0),
+    ("gemma2_global", 2, 16, 8, 4608, 256, torch.float32, 0, 50.0),
+    ("gemma2_local", 2, 16, 8, 4608, 256, torch.float32, 4096, 50.0),
+    ("gemma2_global_bf16", 2, 16, 8, 4608, 256, torch.bfloat16, 0, 50.0),
+    ("gemma2_local_bf16", 2, 16, 8, 4608, 256, torch.bfloat16, 4096, 50.0),
+    ("ragged_gqa", 1, 16, 2, 1000, 128, torch.float32, 0, 0.0),
+    ("ragged_gqa_bf16", 1, 16, 2, 1000, 128, torch.bfloat16, 0, 0.0),
+) + tuple((f"small_d{D}_{str(dt)[6:]}", 2, 6, 2, 130, D, dt, 40, 50.0)
+          for D in (32, 64, 128, 256)
+          for dt in (torch.float32, torch.bfloat16))
+# Each gradient's largest error over its largest magnitude, against the
+# plain backward on the same o and lse: f32 sums in another order; bf16
+# outputs (one rounding, 2^-8 of the value, plus the sums').
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# The forward's row statistics against the plain version's (absolute: the
+# kernels take exp as ex2.approx, about 2 ulp).
+LSE_TOL = 1e-3
+
+
+def sdpa_backward(q, k, v, do):
+    """The library yardstick at cap 0: ``scaled_dot_product_attention``
+    (causal, ``enable_gqa``) and ``torch.autograd.grad`` through it, and
+    its forward alone; never on the port's path."""
+    import torch.nn.functional as F
+
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def forward():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                              enable_gqa=True)
+
+    def both():
+        return torch.autograd.grad(forward(), (qg, kg, vg), do)
+
+    return forward, both
+
+
+def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
+    """The attention backward kernel against its plain version at
+    BWD_SHAPES: the forward kernel run with its row statistics (lse,
+    against the plain forward's; o bitwise the serve path's, which
+    writes no lse), then ``flash_attention_bwd`` on that o and lse, every
+    output poisoned with NaN, against ``flash_attention_bwd_ref`` on the
+    same inputs, a second launch bitwise the first.  At the full-width
+    shapes: device ms against the bounds (five products of 2·D
+    operations a kept pair: on the CUDA cores at the f32 rate, and on the
+    tensor cores, as three TF32 passes in f32, in one bf16 pass), the
+    plain version's ms and, at cap 0, SDPA's backward (its forward and
+    backward less its forward).  Returns the kernels-summary rows of the
+    f32 and bf16 backward at Qwen2.5-3B's training shape."""
+    bw, peak_f32, peak_bf16, peak_tf32 = card_peaks(
+        torch.cuda.get_device_name(0))
+    rows = {}
+    for label, B, H, KV, S, D, dtype, window, cap in BWD_SHAPES:
+        g = torch.Generator(DEVICE).manual_seed(S + D + window + 1)
+        q = (4 * torch.randn(B, H, S, D, generator=g, device=DEVICE)).to(
+            dtype)
+        k = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
+        v = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
+        do = torch.randn(B, H, S, D, generator=g, device=DEVICE).to(dtype)
+        mode = {"causal": True, "window": window, "cap": cap,
+                "scale": D ** -0.5}
+        args = (mode["causal"], window, cap, mode["scale"])
+        o, lse = poisoned_outputs(fa, lambda: fa._forward(q, k, v, *args,
+                                                          True))
+        o_serve = fa._forward(q, k, v, *args, False)[0]
+        ref_o, ref_lse = ref_fn(q, k, v, return_lse=True, **mode)
+        lse_err = float((lse - ref_lse).abs().max())
+        grads = poisoned_outputs(fa, lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, **mode))
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **mode)
+        want = bwd_ref_fn(q, k, v, o, lse, do, **mode)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, b)
+                for n, a, b in zip(("dq", "dk", "dv"), grads, want)}
+        abs_errs = {n: float((a.float() - b.float()).abs().max())
+                    for n, a, b in zip(("dq", "dk", "dv"), grads, want)}
+        tol = BWD_TOL[dtype]
+        line = {"phase": "lm_train", "kernel": "flash_attention_bwd",
+                "shape": label, "B": B, "H": H, "KV": KV, "S": S, "D": D,
+                "dtype": str(dtype), "window": window, "cap": cap,
+                "rel_err": errs, "tol_rel": tol, "abs_err": abs_errs,
+                "lse_abs_err": lse_err,
+                "tol_lse": LSE_TOL,
+                "o_bitwise_serve": bool(torch.equal(o, o_serve)),
+                "o_abs_err": float((o.float() - ref_o.float()).abs().max()),
+                "bitwise_rerun": all(torch.equal(a, b)
+                                     for a, b in zip(grads, again)),
+                "finite": all(bool(torch.isfinite(x.float()).all())
+                              for x in grads)}
+        del ref_o, ref_lse, want, again
+        if not label.startswith("small"):
+            pairs = B * H * unmasked_pairs(S, window)
+            flops = 5 * 2 * D * pairs
+            nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()
+                      + 4 * lse.numel())
+            tc = (flops / peak_bf16 if dtype == torch.bfloat16
+                  else 3 * flops / peak_tf32) * 1e3
+            reps = 5 if S >= 4096 else 20
+            ms = device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                          do, **mode), reps)
+            plain_ms = device_ms(lambda: bwd_ref_fn(q, k, v, o, lse, do,
+                                                    **mode), 3)
+            line.update(ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
+                        bound_ms_bytes=nbytes / bw * 1e3,
+                        bound_ms_cuda_cores=flops / peak_f32 * 1e3,
+                        bound_ms_tensor_cores=tc,
+                        achieved_flops_per_s=flops / (ms * 1e-3),
+                        library_ms=None)
+            if cap == 0.0 and window == 0:
+                forward, both = sdpa_backward(q, k, v, do)
+                lib = both()
+                want = bwd_ref_fn(q, k, v, o, lse, do, **mode)
+                line["library"] = "scaled_dot_product_attention backward"
+                line["library_rel_err"] = {
+                    n: rel_err(a, b)
+                    for n, a, b in zip(("dq", "dk", "dv"), lib, want)}
+                del lib, want
+                line["library_fwd_bwd_ms"] = device_ms(both, reps)
+                line["library_fwd_ms"] = device_ms(forward, reps)
+                line["library_ms"] = (line["library_fwd_bwd_ms"]
+                                      - line["library_fwd_ms"])
+            rows[label] = line
+        emit(line)
+        if not (all(e <= tol for e in errs.values()) and line["finite"]
+                and lse_err <= LSE_TOL and line["o_bitwise_serve"]
+                and line["bitwise_rerun"]):
+            raise AssertionError(f"the attention backward disagrees with "
+                                 f"its plain version at {label}: {line}")
+        del q, k, v, do, o, lse, o_serve, grads
+        torch.cuda.empty_cache()
+    out = []
+    for name, label in (("flash_attention_bwd", "qwen"),
+                        ("flash_attention_bwd_bf16", "qwen_bf16")):
+        main = rows[label]
+        bound = max(main["bound_ms_bytes"], main["bound_ms_tensor_cores"])
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:28 (its "
+                        "gradient, which JAX takes through "
+                        "src/repro/models/attention.py:32)",
+            "launches": None, "max_abs_err": max(main["abs_err"].values()),
+            "max_rel_err": max(main["rel_err"].values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": bound,
+            "bound_by": ("bytes" if main["bound_ms_bytes"] >= bound
+                         else "operations"),
+            "bound_basis": ("3xTF32 on the tensor cores (f32 accuracy)"
+                            if name == "flash_attention_bwd" else
+                            "bf16 on the tensor cores"),
+            "bound_ms_f32_cuda_cores": main["bound_ms_cuda_cores"],
+            "library_ms": main["library_ms"], "library": main["library"],
+            "shape": label})
+    return out
+
+
+# The reduced Gemma-2's train steps on the card against the CPU: relative
+# to each leaf's largest magnitude, f32 sums in other orders (cuBLAS and
+# the kernels against ATen's CPU loops and the plain versions); bf16: one
+# bf16 ulp (2^-8) of a parameter or of the loss may flip.
+LM_REF_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LM_REF_S, LM_REF_B = 64, 4
+
+
+def tree_rel_err(got, want) -> float:
+    """The largest over leaves of max |got − want| / max |want|."""
+    from repro_torch.utils import tree_leaves
+
+    return max(rel_err(a, b) if b.abs().max() > 0 else
+               float((a.float().cpu() - b.float().cpu()).abs().max())
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def lm_train_reference_phase(fa, kmod) -> dict:
+    """The reduced Gemma-2 (``get_config("gemma2-9b", reduced=True)``)
+    trained on the card and on the CPU from the same params, tokens and
+    noise: two shard-mode steps (M = 2, the plan's weights and channel
+    noise), two replica steps (K = 4, C = 2, two local steps a client;
+    ``cwfl_round`` once a step), one bf16 shard step; the losses and
+    params within LM_REF_TOL, and each kernel's launches on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.fl_integration import make_fl_plan
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import sgd
+    from repro_torch.training import dist_steps as ds
+    from repro_torch.utils import tree_leaves, tree_map
+    from repro_torch.utils.nest import nest_stack
+
+    cfg = get_config("gemma2-9b", reduced=True)
+    shape = InputShape("train", LM_REF_S, LM_REF_B, "train")
+    plan_cpu = make_fl_plan(4, 2, 0, device="cpu")
+    plan_card = dataclasses.replace(plan_cpu,
+                                    state=state_to(plan_cpu.state, DEVICE))
+    g = torch.Generator().manual_seed(0)
+    seqs = torch.randint(0, cfg.vocab_size, (2, LM_REF_B, LM_REF_S + 1),
+                         generator=g)
+    batches = [{"tokens": x[:, :-1], "labels": x[:, 1:]} for x in seqs]
+
+    def card(tree):
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(a.to(DEVICE) for a in tree)
+        return tree_map(lambda a: a.to(DEVICE), tree)
+
+    def counts():
+        return {n: getattr(fa, n) for n in (
+            "launches", "launches_bf16", "launches_bwd",
+            "launches_bwd_bf16")} | {"cwfl_round": kmod.launches}
+
+    def zero():
+        fa.launches = fa.launches_bf16 = 0
+        fa.launches_bwd = fa.launches_bwd_bf16 = 0
+        kmod.launches = 0
+
+    def shard(run_cfg, steps, M, device):
+        params = tfm.init_params(0, run_cfg, device="cpu")
+        noise_g = torch.Generator().manual_seed(1)
+        fn = ds.make_train_step(run_cfg, shape, plan=plan_cpu, lr=0.05,
+                                microbatches=M)
+        state = sgd(0.05).init(params)
+        params = card(params) if device == DEVICE else params
+        losses = []
+        for step in range(steps):
+            noise = [torch.randn(x.shape, generator=noise_g)
+                     for x in tree_leaves(params)]
+            batch = batches[step]
+            if device == DEVICE:
+                noise, batch = card(noise), card(batch)
+            params, state, m = fn(params, state, batch, noise)
+            losses.append(m["loss"])
+        return params, torch.stack(losses)
+
+    def replica(steps, device):
+        K = plan_cpu.num_clients
+        stacked = nest_stack([tfm.init_params(k, cfg, device="cpu")
+                              for k in range(K)])
+        fn = ds.make_replica_train_step(
+            cfg, shape, plan_card if device == DEVICE else plan_cpu,
+            lr=0.05, local_steps=2)
+        noise_g = torch.Generator().manual_seed(2)
+        d = sum(x[0].numel() for x in tree_leaves(stacked))
+        stacked = card(stacked) if device == DEVICE else stacked
+        losses = []
+        for step in range(steps):
+            noise = tuple(torch.randn((plan_cpu.num_clusters, d),
+                                      generator=noise_g) for _ in range(2))
+            batch = {k: x.reshape((K, LM_REF_B // K) + x.shape[1:])
+                     for k, x in batches[step].items()}
+            if device == DEVICE:
+                noise, batch = card(noise), card(batch)
+            stacked, loss = fn(stacked, batch, noise)
+            losses.append(loss)
+        return stacked, torch.stack(losses)
+
+    bf16_cfg = cfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    runs = (("shard_f32", lambda dev: shard(cfg, 2, 2, dev),
+             torch.float32),
+            ("replica_f32", lambda dev: replica(2, dev), torch.float32),
+            ("shard_bf16", lambda dev: shard(bf16_cfg, 1, 2, dev),
+             torch.bfloat16))
+    out = {}
+    for label, run, dtype in runs:
+        want_p, want_l = run("cpu")
+        zero()
+        got_p, got_l = run(DEVICE)
+        torch.cuda.synchronize()
+        launched = counts()
+        line = {"phase": "lm_train", "run": f"gemma2-reduced-{label}",
+                "loss_cuda": got_l.tolist(), "loss_cpu": want_l.tolist(),
+                "loss_rel_err": rel_err(got_l, want_l),
+                "params_rel_err": tree_rel_err(got_p, want_p),
+                "tol_rel": LM_REF_TOL[dtype], "launches": launched,
+                "layers": cfg.num_layers}
+        emit(line)
+        if not (line["loss_rel_err"] <= LM_REF_TOL[dtype]
+                and line["params_rel_err"] <= LM_REF_TOL[dtype]):
+            raise AssertionError(f"the reduced Gemma-2's {label} steps on "
+                                 f"the card disagree with the CPU: {line}")
+        out[label] = launched
+    L = cfg.num_layers
+    want = {"shard_f32": {"launches": 2 * 2 * L, "launches_bwd": 2 * 2 * L},
+            "replica_f32": {"launches": 2 * 4 * 2 * L,
+                            "launches_bwd": 2 * 4 * 2 * L, "cwfl_round": 2},
+            "shard_bf16": {"launches_bf16": 2 * L,
+                           "launches_bwd_bf16": 2 * L}}
+    for label, expected in want.items():
+        full = {n: 0 for n in out[label]} | expected
+        if out[label] != full:
+            raise AssertionError(f"{label}: the kernels launched "
+                                 f"{out[label]} times, expected {full}")
+    return out
+
+
+# Qwen2.5-3B's training at its published width and depth: JAX's train_4k
+# shape with the global batch cut from 256 to 4 sequences of 4,096 tokens
+# (auto_microbatches: M = 4, one sequence a microbatch), f32, the shard-mode
+# step with a K = 4, C = 3, 40 dB plan at JAX's default lr.
+QWEN_BATCH, QWEN_SEQ, QWEN_LR = 4, 4096, 1e-3
+QWEN_CE0_TOL = 0.5    # the first CE within this of ln V (near-uniform logits)
+
+
+def lm_qwen_phase(fa) -> dict:
+    """Three shard-mode steps of Qwen2.5-3B at full width on the card:
+    step 1 and step 2 on one batch (the second CE below the first), step 3
+    on another, under the profiler.  Seconds a step, tokens/s, peak
+    memory, each kernel's launches a step (36 x M forward and backward),
+    and the device time of the attention backward, of the forward
+    attention and of the matrix products in the profiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_dataset
+    from repro_torch.dist.fl_integration import make_fl_plan
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import sgd
+    from repro_torch.training import dist_steps as ds
+
+    cfg = get_config("qwen2.5-3b")
+    shape = InputShape("train_4k", QWEN_SEQ, QWEN_BATCH, "train")
+    M = ds.auto_microbatches(cfg, shape)
+    gc.collect()   # cycles left by earlier phases may hold device memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = make_fl_plan(4, 3, 0, snr_db=40.0, device=DEVICE)
+    params = tfm.init_params(0, cfg, device=DEVICE)
+    seqs = make_token_dataset(1, cfg.vocab_size, 2 * QWEN_BATCH, QWEN_SEQ,
+                              device=DEVICE)
+    batches = [{"tokens": x[:, :-1], "labels": x[:, 1:]}
+               for x in seqs.split(QWEN_BATCH)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fn = ds.make_train_step(cfg, shape, plan=plan, lr=QWEN_LR)
+    state = sgd(QWEN_LR).init(params)
+    noise = torch.Generator(DEVICE).manual_seed(3)
+    steps = []
+    for i, batch in enumerate((batches[0], batches[0], batches[1])):
+        fa.launches = fa.launches_bwd = 0
+        fa.launches_bf16 = fa.launches_bwd_bf16 = 0
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                if i == 2 else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        with prof:
+            t0 = time.perf_counter()
+            params, state, m = fn(params, state, batch, noise)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        steps.append({"s": seconds, "ce": float(m["ce"]),
+                      "loss": float(m["loss"]),
+                      "launches": fa.launches,
+                      "launches_bwd": fa.launches_bwd,
+                      "launches_bf16": fa.launches_bf16,
+                      "launches_bwd_bf16": fa.launches_bwd_bf16})
+    peak = torch.cuda.max_memory_allocated()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(ms for _, ms in rows)
+    bwd_ms = sum(ms for k, ms in rows if "flash_attention_bwd" in k)
+    fwd_ms = sum(ms for k, ms in rows
+                 if "flash_attention" in k and "bwd" not in k)
+    gemm_ms = sum(ms for k, ms in rows
+                  if any(w in k for w in ("gemm", "nvjet", "cutlass")))
+    tokens = QWEN_BATCH * QWEN_SEQ
+    line = {"phase": "lm_train", "run": "qwen2.5-3b", "layers":
+            cfg.num_layers, "d_model": cfg.d_model,
+            "params": tfm.count_params(cfg), "batch": QWEN_BATCH,
+            "seq": QWEN_SEQ, "microbatches": M, "lr": QWEN_LR,
+            "noise_std": plan.noise_std, "init_s": init_s, "steps": steps,
+            "step_s": steps[1]["s"], "tokens_per_s": tokens / steps[1]["s"],
+            "peak_mem_bytes": peak,
+            "device_total_bytes": torch.cuda.get_device_properties(
+                0).total_memory,
+            "ce_uniform": math.log(cfg.vocab_size),
+            "profiled_step_s": steps[2]["s"],
+            "profiled_device_busy_ms": busy,
+            "profiled_attention_bwd_ms": bwd_ms,
+            "profiled_attention_fwd_ms": fwd_ms,
+            "profiled_gemm_ms": gemm_ms,
+            "attention_bwd_share_of_busy": bwd_ms / busy if busy else None,
+            "device_idle_share": 1.0 - busy / (steps[2]["s"] * 1e3),
+            "top": sorted(rows, key=lambda r: -r[1])[:8]}
+    del params, state, batches, seqs, prof
+    torch.cuda.empty_cache()
+    emit(line)
+    want = cfg.num_layers * M
+    ok = (M == 4 and all(math.isfinite(s["loss"]) for s in steps)
+          and abs(steps[0]["ce"] - line["ce_uniform"]) <= QWEN_CE0_TOL
+          and steps[1]["ce"] < steps[0]["ce"]
+          and all(s["launches"] == want and s["launches_bwd"] == want
+                  and s["launches_bf16"] == 0 and s["launches_bwd_bf16"] == 0
+                  for s in steps))
+    if not ok:
+        raise AssertionError(f"Qwen2.5-3B's training steps failed a check "
+                             f"(M = 4, finite losses, the first CE within "
+                             f"{QWEN_CE0_TOL} of ln V, the second CE lower, "
+                             f"{want} launches of each kernel a step): "
+                             f"{line}")
+    return {"launches": want, "launches_bwd": want}
+
+
+# The twin's gate: examples/train_lm_cwfl.py --steps 300 on the CPU (JAX)
+# ends at a CE of 8.254 (lm-6m, ln 4096 = 8.318); the twin, from its own
+# draws, may end at most LM_TWIN_MARGIN above that.
+LM_TWIN_JAX_CE = 8.254
+LM_TWIN_MARGIN = 0.05
+
+
+def lm_twin_phase() -> dict:
+    """``examples/train_lm_cwfl_torch.py --steps 300`` on the card: its
+    final CE under the JAX example's plus LM_TWIN_MARGIN, and its
+    seconds."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_cwfl_torch", ROOT / "examples" / "train_lm_cwfl_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    with contextlib.redirect_stdout(sys.stderr):
+        out = twin.main(["--steps", "300"])
+    line = {"phase": "lm_train", "run": "examples/train_lm_cwfl_torch.py",
+            "steps": 300, "seconds": out["seconds"],
+            "steps_per_s": 300 / out["seconds"], "ce_first": out["ce"][0],
+            "ce_final": out["ce"][-1],
+            "ce_last25_mean": sum(out["ce"][-25:]) / 25,
+            "gate": LM_TWIN_JAX_CE + LM_TWIN_MARGIN,
+            "ce_uniform": math.log(4096)}
+    emit(line)
+    if not line["ce_final"] <= line["gate"]:
+        raise AssertionError(f"the LM twin's final CE is above its gate: "
+                             f"{line}")
+    return line
+
+
 def serial_build_seconds(sources) -> float:
     """Seconds of a cold build of ``sources`` with one ``nvcc`` after
     another, into a scratch directory: against the build phase's own
@@ -3226,7 +3688,9 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ota_aggregate as omod
     from repro_torch.kernels._build import build, library_path
-    from repro_torch.kernels.ref import (cwfl_round_ref, flash_attention_ref,
+    from repro_torch.kernels.ref import (cwfl_round_ref,
+                                         flash_attention_bwd_ref,
+                                         flash_attention_ref,
                                          ota_aggregate_ref)
 
     smi = subprocess.run(
@@ -3245,20 +3709,26 @@ def main() -> None:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    sources = [kmod.SOURCE, omod.SOURCE, *fa.SOURCES]
+    # The serial cold build times the FL and serving kernels' sources, the
+    # set earlier runs timed, so that its number stays comparable.
+    serial = [kmod.SOURCE, omod.SOURCE, *fa.SOURCES]
+    sources = [*serial, fa.SOURCE_BWD]
     cold = not any(library_path(src).exists() for src in sources)
     t0 = time.perf_counter()
     build(sources)
     kmod._library()
     omod._library()
-    fa._library(torch.float32)
-    fa._library(torch.bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        fa._library(dtype)
+        fa._library_bwd(dtype)
     seconds = time.perf_counter() - t0
     libraries = {}
     for names, source in ((["cwfl_round", "cwfl_round_guard"], kmod.SOURCE),
                           (["ota_aggregate"], omod.SOURCE),
                           (["flash_attention"], fa.SOURCE_F32),
-                          (["flash_attention_bf16"], fa.SOURCE_BF16)):
+                          (["flash_attention_bf16"], fa.SOURCE_BF16),
+                          (["flash_attention_bwd", "flash_attention_bwd_bf16"],
+                           fa.SOURCE_BWD)):
         log = library_path(source).with_suffix(".log").read_text()
         libraries[library_path(source).name] = {
             "kernels": names,
@@ -3267,9 +3737,11 @@ def main() -> None:
                       if "registers" in ln or "spill" in ln]}
     emit({"phase": "build",
           "kernels": ["cwfl_round", "cwfl_round_guard", "ota_aggregate",
-                      "flash_attention", "flash_attention_bf16"],
+                      "flash_attention", "flash_attention_bf16",
+                      "flash_attention_bwd", "flash_attention_bwd_bf16"],
           "seconds": seconds, "cold": cold,
-          "serial_cold_seconds": serial_build_seconds(sources),
+          "serial_cold_seconds": serial_build_seconds(serial),
+          "serial_cold_sources": [src.name for src in serial],
           "libraries": libraries})
 
     cwfl_row, cwfl_cifar_row, cwfl_c4_row = kernel_phase(kmod,
@@ -3331,6 +3803,17 @@ def main() -> None:
     profile_phase()
     profile_phase("head-failure")
     cifar_profile_phase()
+    bwd_row, bwd_bf16_row = fa_bwd_kernel_phase(fa, flash_attention_ref,
+                                                flash_attention_bwd_ref)
+    rows += [bwd_row, bwd_bf16_row]
+    reference = lm_train_reference_phase(fa, kmod)
+    bwd_bf16_row["launches"] = reference["shard_bf16"]["launches_bwd_bf16"]
+    fa_bf16_row["launches_train"] = reference["shard_bf16"]["launches_bf16"]
+    cwfl_row["launches_replica"] = reference["replica_f32"]["cwfl_round"]
+    qwen = lm_qwen_phase(fa)
+    bwd_row["launches"] = qwen["launches_bwd"]
+    fa_row["launches_train"] = qwen["launches"]
+    lm_twin_phase()
 
     print(smi, flush=True)
     emit({"kernels": rows})

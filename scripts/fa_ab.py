@@ -9,7 +9,10 @@ unpacked with ``git archive`` into a git-ignored directory) at
 ``chip_smoke.py``'s ``FA_SHAPES``: each launch's largest error against
 the checkout's own plain version (its output poisoned with NaN before the
 launch) and, at the full-width shapes, the median time of a launch with
-the L2 flushed before it.  Each checkout runs in a process of its own
+the L2 flushed before it, and a digest of the output's bytes; with
+``--parent`` a last line says, shape by shape, whether the two
+checkouts' outputs are bitwise the same.  Each checkout runs in a process
+of its own
 (both name their package ``repro_torch``), in the order parent, change,
 change, parent, so that both are timed on one card in turns.  Prints the
 card's ``nvidia-smi`` line, then one JSON object a line: each library's
@@ -17,6 +20,7 @@ compiler report (registers, spills, warnings), then each shape.  Needs a
 CUDA device; exits 1 without one.
 """
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -59,7 +63,10 @@ def worker(src: str, label: str, shapes, reps: int) -> None:
         torch.cuda.synchronize()
         line = {"tree": label, "shape": label_s, "dtype": str(dtype),
                 "max_abs_err": float((out.float() - ref.float()).abs().max()),
-                "finite": bool(torch.isfinite(out.float()).all())}
+                "finite": bool(torch.isfinite(out.float()).all()),
+                "digest": hashlib.sha256(
+                    out.view(torch.uint8).cpu().numpy().tobytes()
+                ).hexdigest()[:16]}
         del out, ref
         if not label_s.startswith("small"):
             line["ms"] = cs.time_cold(
@@ -91,10 +98,21 @@ def main() -> None:
     if args.parent:
         parent = ("parent", str(Path(args.parent).resolve() / "src"))
         runs = [parent, change, change, parent]
+    digests = {}
     for label, src in runs:
-        subprocess.run([sys.executable, __file__, "--worker", src, label,
-                        "--reps", str(args.reps), "--shapes", *args.shapes],
-                       check=True)
+        out = subprocess.run([sys.executable, __file__, "--worker", src,
+                              label, "--reps", str(args.reps), "--shapes",
+                              *args.shapes], check=True, text=True,
+                             stdout=subprocess.PIPE).stdout
+        print(out, end="", flush=True)
+        for ln in out.splitlines():
+            line = json.loads(ln)
+            if "digest" in line:
+                digests.setdefault(line["shape"], set()).add(line["digest"])
+    if args.parent:
+        print(json.dumps({"bitwise_parent_change": {
+            shape: len(d) == 1 for shape, d in digests.items()}}),
+            flush=True)
 
 
 if __name__ == "__main__":

@@ -6,3 +6,4 @@ from repro_torch.data.synthetic import (
     partition_iid,
     partition_noniid,
 )
+from repro_torch.data.tokens import make_token_dataset

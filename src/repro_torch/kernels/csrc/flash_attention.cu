@@ -111,6 +111,8 @@
 // be encoded.  The workspace (allocated by the wrapper, `workspace_floats`
 // there) holds, in this order, q_hi and q_lo (B, H, Sq, D), k_hi and k_lo
 // (B, KV, Skv, D), and v^T_hi and v^T_lo (B, KV, D, Skv rounded up to 8).
+// `lse` is null when serving; in training it is a (B, H, Sq) f32 output,
+// the row statistics m + log l that flash_attention_bwd.cu reads.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -473,8 +475,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const __grid_constant__ CUtensorMap kl_map,
                                 const __grid_constant__ CUtensorMap vh_map,
                                 const __grid_constant__ CUtensorMap vl_map,
-                                float* __restrict__ o, int H, int KV, int Sq,
-                                int Skv, int causal, int window, float cap) {
+                                float* __restrict__ o,
+                                float* __restrict__ lse, int H, int KV,
+                                int Sq, int Skv, int causal, int window,
+                                float cap) {
   using L = Layout<D>;
   constexpr int kC = L::kChunks;
   constexpr int kNP = L::kNP;
@@ -683,8 +687,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(px);
   }
 
-  // Epilogue: O / max(l, 1e-30), rows >= Sq left out.
-  float* ob = o + (static_cast<int64_t>(b) * H + h) * Sq * D;
+  // Epilogue: O / max(l, 1e-30), rows >= Sq left out; and, for training
+  // (lse not null), the row statistics m + log l, from the first thread
+  // of each quad (all four hold a row's m and l), after the last product.
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Sq;
+  float* ob = o + row0 * D;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qpos = qpos0 + 8 * half;
@@ -697,6 +704,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           make_float2(acc[4 * n8 + 2 * half] * inv,
                       acc[4 * n8 + 2 * half + 1] * inv);
     }
+    if (lse != nullptr && col == 0)
+      lse[row0 + qpos] = (half ? m1 : m0) + logf(half ? l1 : l0);
   }
 }
 
@@ -769,7 +778,7 @@ int split_launch(const float* x, float* hi, float* lo, int64_t n,
 
 template <int D>
 int launch_d(const float* q, const float* k, const float* v, float* o,
-             float* work, int B, int H, int KV, int Sq, int Skv, int causal,
+             float* work, float* lse, int B, int H, int KV, int Sq, int Skv, int causal,
              int window, float cap, float scale, cudaStream_t stream) {
   const int64_t nq = static_cast<int64_t>(B) * H * Sq * D;
   const int64_t nk = static_cast<int64_t>(B) * KV * Skv * D;
@@ -808,8 +817,8 @@ int launch_d(const float* q, const float* k, const float* v, float* o,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ), H, B);
   kernel<<<grid, kThreads, Layout<D>::kAlloc, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], o, H, KV, Sq, Skv, causal, window,
-      cap);
+      m[0], m[1], m[2], m[3], m[4], m[5], o, lse, H, KV, Sq, Skv, causal,
+      window, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -818,14 +827,15 @@ int launch_d(const float* q, const float* k, const float* v, float* o,
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        void* work, int B, int H, int KV, int Sq, int Skv,
-                        int D, int causal, int window, float cap, float scale,
-                        void* stream) {
+                        void* work, void* lse, int B, int H, int KV, int Sq,
+                        int Skv, int D, int causal, int window, float cap,
+                        float scale, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (Skv == 0) {  // no key at all: every row is 0, as in the plain version
     return static_cast<int>(cudaMemsetAsync(
         o, 0, static_cast<size_t>(B) * H * Sq * D * 4, st));
   }
+  auto* lf = static_cast<float*>(lse);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
@@ -833,17 +843,17 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
   auto* wf = static_cast<float*>(work);
   switch (D) {
     case 32:
-      return launch_d<32>(qf, kf, vf, of, wf, B, H, KV, Sq, Skv, causal,
+      return launch_d<32>(qf, kf, vf, of, wf, lf, B, H, KV, Sq, Skv, causal,
                           window, cap, scale, st);
     case 64:
-      return launch_d<64>(qf, kf, vf, of, wf, B, H, KV, Sq, Skv, causal,
+      return launch_d<64>(qf, kf, vf, of, wf, lf, B, H, KV, Sq, Skv, causal,
                           window, cap, scale, st);
     case 128:
-      return launch_d<128>(qf, kf, vf, of, wf, B, H, KV, Sq, Skv, causal,
-                           window, cap, scale, st);
+      return launch_d<128>(qf, kf, vf, of, wf, lf, B, H, KV, Sq, Skv,
+                           causal, window, cap, scale, st);
     case 256:
-      return launch_d<256>(qf, kf, vf, of, wf, B, H, KV, Sq, Skv, causal,
-                           window, cap, scale, st);
+      return launch_d<256>(qf, kf, vf, of, wf, lf, B, H, KV, Sq, Skv,
+                           causal, window, cap, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -94,7 +94,9 @@
 // Plain C interface, bound with ctypes
 // (src/repro_torch/kernels/flash_attention.py): flash_attention_bf16
 // launches on the given stream and returns the first CUDA error, 0, or
-// 1000 + the CUresult if a tensor map cannot be encoded.
+// 1000 + the CUresult if a tensor map cannot be encoded.  `lse` is null
+// when serving; in training it is a (B, H, Sq) f32 output, the row
+// statistics m + log l that flash_attention_bwd.cu reads.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -459,7 +461,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                                 const __grid_constant__ CUtensorMap kmap,
                                 const __grid_constant__ CUtensorMap vmap,
-                                __nv_bfloat16* __restrict__ o, int H, int KV,
+                                __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ lse, int H, int KV,
                                 int Sq, int Skv, int causal, int window,
                                 float cap, float scale) {
   using L = Layout<DP>;
@@ -638,8 +641,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_arrive_one(v_empty(sp));
   }
 
-  // Epilogue: O / max(l, 1e-30) in bf16, rows >= Sq left out.
-  __nv_bfloat16* ob = o + (static_cast<int64_t>(b) * H + h) * Sq * D;
+  // Epilogue: O / max(l, 1e-30) in bf16, rows >= Sq left out; and, for
+  // training (lse not null), the row statistics m + log l, from the first
+  // thread of each quad (all four hold a row's m and l), after the last
+  // product has been waited on.
+  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Sq;
+  __nv_bfloat16* ob = o + row0 * D;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qpos = qpos0 + 8 * half;
@@ -654,6 +661,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                   acc[4 * n + 2 * half + 1] * inv);
       }
     }
+    if (lse != nullptr && col == 0)
+      lse[row0 + qpos] = (half ? m1 : m0) + logf(half ? l1 : l0);
   }
 }
 
@@ -709,9 +718,9 @@ int encode(CUtensorMap* map, const void* ptr, int D, int S, int planes) {
 }
 
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int KV, int Sq, int Skv, int causal, int window,
-             float cap, float scale, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int H, int KV, int Sq, int Skv, int causal,
+             int window, float cap, float scale, cudaStream_t stream) {
   constexpr int DP = D < kBox ? kBox : D;
   CUtensorMap qm, km, vm;
   int err = encode(&qm, q, D, Sq, B * H);
@@ -726,8 +735,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ), H, B);
   kernel<<<grid, kThreads, Layout<DP>::kAlloc, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, KV, Sq, Skv, causal,
-      window, cap, scale);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, KV, Sq, Skv,
+      causal, window, cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -736,27 +745,28 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, int B, int H, int KV, int Sq, int Skv,
-                         int D, int causal, int window, float cap,
+                         void* o, void* lse, int B, int H, int KV, int Sq,
+                         int Skv, int D, int causal, int window, float cap,
                          float scale, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (Skv == 0) {  // no key at all: every row is 0, as in the plain version
     return static_cast<int>(cudaMemsetAsync(
         o, 0, static_cast<size_t>(B) * H * Sq * D * 2, st));
   }
+  auto* lf = static_cast<float*>(lse);
   switch (D) {
     case 32:
-      return launch_d<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, cap,
-                          scale, st);
+      return launch_d<32>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal,
+                           window, cap, scale, st);
     case 64:
-      return launch_d<64>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, cap,
-                          scale, st);
+      return launch_d<64>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal,
+                           window, cap, scale, st);
     case 128:
-      return launch_d<128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
-                           cap, scale, st);
+      return launch_d<128>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal,
+                           window, cap, scale, st);
     case 256:
-      return launch_d<256>(q, k, v, o, B, H, KV, Sq, Skv, causal, window,
-                           cap, scale, st);
+      return launch_d<256>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal,
+                           window, cap, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

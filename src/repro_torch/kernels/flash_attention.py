@@ -28,6 +28,17 @@ or raises; on a CPU tensor it runs the plain version
 `repro_torch.kernels.ref.flash_attention_ref`.  There is no fallback from
 one to another.
 
+Training: when q, k or v requires grad, :func:`flash_attention` runs
+through :class:`FlashAttentionFn`, whose forward asks the kernel for the
+row statistics lse = m + log l as well (the serve path passes a null
+pointer and writes none) and whose backward launches
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`: a Δ
+pre-pass, a dK/dV kernel and a dQ kernel, f32 sums on the CUDA cores,
+no atomics, so the gradients are bitwise the same run to run).  On the
+CPU both directions run the plain versions (`flash_attention_ref` with
+``return_lse``, `flash_attention_bwd_ref`); autograd never runs through
+the plain forward on a CUDA tensor.
+
 A row with no valid key at all has no meaningful value in any kernel:
 the Pallas kernel gives mean(v) (its −1e30 scores tie), these mean(v)
 over the KV tiles they visit, or 0 where they skip them all; the plain
@@ -43,34 +54,55 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels._build import load_library
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref)
 
 _CSRC = Path(__file__).with_name("csrc")
 #: The f32 kernel (3×TF32 wgmma + TMA) and the bf16 kernel (wgmma + TMA).
 SOURCE_F32 = _CSRC / "flash_attention.cu"
 SOURCE_BF16 = _CSRC / "flash_attention_sm90.cu"
+#: The forward kernels, one for each dtype.
 SOURCES = (SOURCE_F32, SOURCE_BF16)
+#: The backward kernel, both dtypes (f32 sums on the CUDA cores).
+SOURCE_BWD = _CSRC / "flash_attention_bwd.cu"
 #: The head dimensions both kernels are instantiated for.
 HEAD_DIMS = (32, 64, 128, 256)
 
-#: Kernel launches so far, f32 and bf16; each raised by one per launch of
-#: its kernel, and nowhere else.
+#: Kernel launches so far: the forward in f32 and bf16, the backward in
+#: f32 and bf16; each raised by one per launch of its kernel (one call of
+#: its C entry), and nowhere else.
 launches = 0
 launches_bf16 = 0
+launches_bwd = 0
+launches_bwd_bf16 = 0
 
 
 @functools.cache
 def _library(dtype: torch.dtype):
-    """The entry point of ``dtype``'s kernel, its library built and loaded
-    at the first call (never at import)."""
-    # The f32 entry takes a workspace pointer after the output.
+    """The entry point of ``dtype``'s forward kernel, its library built and
+    loaded at the first call (never at import)."""
+    # The f32 entry takes a workspace pointer after the output; both take
+    # the lse pointer (null when serving) last.
     if dtype == torch.float32:
         fn = load_library(SOURCE_F32).flash_attention_f32
-        pointers = 5
+        pointers = 6
     else:
         fn = load_library(SOURCE_BF16).flash_attention_bf16
-        pointers = 4
+        pointers = 5
     fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _library_bwd(dtype: torch.dtype):
+    """The backward kernel's entry point for ``dtype``: q, k, v, o, lse,
+    do, dq, dk, dv and the Δ workspace, then the shapes and the mode."""
+    lib = load_library(SOURCE_BWD)
+    fn = (lib.flash_attention_bwd_f32 if dtype == torch.float32
+          else lib.flash_attention_bwd_bf16)
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -105,20 +137,26 @@ def _check(q, k, v):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, cap: float = 0.0,
-                    scale: float | None = None) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, KV, Skv, D) with H a multiple of KV.
-    ``window`` > 0 keeps keys k > q − window; ``cap`` > 0 soft-caps the
-    scores; ``scale`` multiplies q (default D^-0.5).  Returns (B, H, Sq,
-    D) in q's dtype."""
+def _check_cuda(*tensors) -> None:
+    for name, x in tensors:
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _forward(q, k, v, causal: bool, window: int, cap: float, scale: float,
+             with_lse: bool):
+    """``(o, lse)``: the kernel of q's dtype on a CUDA tensor, the plain
+    version on a CPU one; ``lse`` (B, H, Sq) f32 only ``with_lse``, else
+    None."""
     global launches, launches_bf16
-    _check(q, k, v)
-    if scale is None:
-        scale = q.shape[3] ** -0.5
     if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       cap=cap, scale=scale, return_lse=True)
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   cap=cap, scale=scale)
+                                   cap=cap, scale=scale), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
@@ -126,20 +164,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV, Skv = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _check_cuda(("q", q), ("k", k), ("v", v))
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     fn = _library(q.dtype)
     pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
     if q.dtype == torch.float32:
         work = torch.empty(workspace_floats(B, H, KV, Sq, Skv, D),
                            dtype=torch.float32, device=q.device)
         pointers.append(work.data_ptr())
+    pointers.append(None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         err = fn(*pointers, B, H, KV, Sq, Skv, D, int(causal), int(window),
                  float(cap), float(scale),
@@ -153,5 +190,98 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         launches += 1
     else:
         launches_bf16 += 1
-    return out
+    return out, lse
 
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, cap: float = 0.0,
+                        scale: float | None = None):
+    """The gradient of :func:`flash_attention`: ``(dq, dk, dv)`` in the
+    dtypes of q, k and v, from the forward's output ``o`` and row
+    statistics ``lse`` (B, H, Sq) f32 and the output's gradient ``do``.
+    On a CUDA tensor it launches ``csrc/flash_attention_bwd.cu`` or
+    raises; on a CPU tensor it runs `flash_attention_bwd_ref`."""
+    global launches_bwd, launches_bwd_bf16
+    _check(q, k, v)
+    if scale is None:
+        scale = q.shape[3] ** -0.5
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must be {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)} and {tuple(do.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, cap=cap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
+                         f"{q.device}")
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"o and do must be {q.dtype}, got {o.dtype} and "
+                        f"{do.dtype}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {H}, {Sq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    _check_cuda(("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
+                ("do", do))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel() == 0 and dk.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = _library_bwd(q.dtype)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), delta.data_ptr(), B, H, KV, Sq, Skv, D,
+                 int(causal), int(window), float(cap), float(scale),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype})")
+    if q.dtype == torch.float32:
+        launches_bwd += 1
+    else:
+        launches_bwd_bf16 += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward saves q, k, v,
+    o and the row statistics, the backward is :func:`flash_attention_bwd`
+    (the kernel on CUDA, the plain backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, scale):
+        o, lse = _forward(q, k, v, causal, window, cap, scale, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mode = {"causal": causal, "window": window, "cap": cap,
+                    "scale": scale}
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.mode)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, cap: float = 0.0,
+                    scale: float | None = None) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, KV, Skv, D) with H a multiple of KV.
+    ``window`` > 0 keeps keys k > q − window; ``cap`` > 0 soft-caps the
+    scores; ``scale`` multiplies q (default D^-0.5).  Returns (B, H, Sq,
+    D) in q's dtype, differentiable (:class:`FlashAttentionFn`) when an
+    input requires grad."""
+    _check(q, k, v)
+    if scale is None:
+        scale = q.shape[3] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, cap, scale)
+    return _forward(q, k, v, causal, window, cap, scale, False)[0]

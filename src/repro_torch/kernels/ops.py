@@ -40,11 +40,12 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q is scaled by D^-0.5 in its own dtype, as the JAX model's attention
     does (`repro.models.attention.flash_attention`: the scale rounded to
     q's dtype, the product rounded once), and the kernel runs with
-    ``scale=1.0``; in bf16 at D = 128 that rounding moves the scores."""
-    B, S, H, D = q.shape
+    ``scale=1.0``; in bf16 at D = 128 that rounding moves the scores.
+    Differentiable: the gradient runs through the kernel's backward
+    (`repro_torch.kernels.flash_attention.FlashAttentionFn`)."""
+    D = q.shape[3]
     scale = torch.tensor(D ** -0.5, dtype=q.dtype).item()
-    qt = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
-    torch.mul(q.transpose(1, 2), scale, out=qt)
+    qt = (q * scale).transpose(1, 2).contiguous()
     o = flash_attention(qt, k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous(),
                         causal=causal, window=window, cap=cap, scale=1.0)

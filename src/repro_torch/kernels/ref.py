@@ -54,14 +54,29 @@ def cwfl_round_ref(signals: torch.Tensor, phase1: torch.Tensor,
     return new, torch.mean(theta_bar, dim=-2)
 
 
+def _attention_mask(Sq: int, Skv: int, causal: bool, window: int, device):
+    """(Sq, Skv) keys each query row sees: k ≤ q (causal), k > q − window
+    (window > 0)."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        cap: float = 0.0,
-                        scale: float | None = None) -> torch.Tensor:
+                        cap: float = 0.0, scale: float | None = None,
+                        return_lse: bool = False):
     """Exact softmax attention, f32 throughout.  q: (B, H, Sq, D); k, v:
     (B, KV, Skv, D); query head h reads KV head h // (H / KV); q is
     multiplied by ``scale`` in f32 (default D^-0.5).  A row with no valid
-    key gives 0.  Returns (B, H, Sq, D) in q's dtype."""
+    key gives 0.  Returns (B, H, Sq, D) in q's dtype, and with
+    ``return_lse`` also the row statistics log Σ exp(s), (B, H, Sq) f32
+    (the kernels' second output, which the backward reads)."""
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     if scale is None:
@@ -70,15 +85,60 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32))
     if cap > 0.0:
         s = cap * torch.tanh(s / cap)
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window > 0:
-        mask &= k_pos > q_pos - window
-    s.masked_fill_(~mask, -torch.inf)
+    mask = _attention_mask(Sq, Skv, causal, window, q.device)
+    s = s.masked_fill(~mask, -torch.inf)
     p = torch.softmax(s, dim=-1)
-    p.masked_fill_(torch.isnan(p), 0.0)     # fully-masked rows -> 0
+    # Fully-masked rows -> 0; out of place, so autograd runs through it.
+    p = torch.where(torch.isnan(p), 0.0, p)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    o = o.reshape(B, H, Sq, D).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            cap: float = 0.0, scale: float | None = None):
+    """The gradient of :func:`flash_attention_ref` from its row statistics,
+    f32 throughout (the backward kernel's plain version).
+
+    q, o, do: (B, H, Sq, D); k, v: (B, KV, Skv, D); lse: (B, H, Sq) f32,
+    the forward's log Σ exp(s) a row (−inf for a row with no key).  With
+    P = exp(s − lse) on the unmasked pairs and 0 elsewhere:
+
+        dV = Σ_g Pᵀ dO               Δ = rowsum(dO ∘ O)
+        dP = dO Vᵀ                   dS = P ∘ (dP − Δ) ∘ (1 − tanh²(s/cap))
+        dQ = scale · dS K            dK = Σ_g dSᵀ (q · scale)
+
+    the softcap's factor only where cap > 0, the sums over g those over
+    the G query heads of a KV head.  Returns ``(dq, dk, dv)`` in the
+    dtypes of q, k and v."""
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = D ** -0.5
+    f32 = torch.float32
+    qg = (q.to(f32) * scale).reshape(B, KV, G, Sq, D)
+    kf, vf = k.to(f32), v.to(f32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf)
+    if cap > 0.0:
+        t = torch.tanh(s / cap)
+        s = cap * t
+    mask = _attention_mask(Sq, Skv, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.to(f32).reshape(
+        B, KV, G, Sq, 1)), 0.0)
+    dog = do.to(f32).reshape(B, KV, G, Sq, D)
+    delta = torch.sum(dog * o.to(f32).reshape(B, KV, G, Sq, D), dim=-1,
+                      keepdim=True)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dog, vf) - delta)
+    if cap > 0.0:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg)
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

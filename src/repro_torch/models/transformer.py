@@ -18,7 +18,9 @@ Entry points:
 
 On the card every attention layer of ``forward`` and ``prefill`` launches
 the hand-written flash-attention kernel
-(`repro_torch.kernels.flash_attention`); decoding is plain torch
+(`repro_torch.kernels.flash_attention`), and ``forward`` is differentiable:
+under autograd each layer's backward launches the attention backward
+kernel; decoding is plain torch
 (`repro_torch.models.attention.decode_attention_delta`).  MoE, the mamba
 and xLSTM mixers, the audio and vision front ends and cross-attention
 raise ``NotImplementedError``.

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, nor
 ``chip_smoke.py``, nor the examples ``quickstart_torch.py``,
-``paper_fig2_torch.py``, ``run_scenario_torch.py`` and
-``obs_report_torch.py`` imports ``jax`` or the JAX package ``repro``."""
+``paper_fig2_torch.py``, ``run_scenario_torch.py``,
+``obs_report_torch.py`` and ``train_lm_cwfl_torch.py`` imports ``jax`` or
+the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -16,7 +17,8 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "paper_fig2_torch.py",
     ROOT / "examples" / "run_scenario_torch.py",
-    ROOT / "examples" / "obs_report_torch.py"]
+    ROOT / "examples" / "obs_report_torch.py",
+    ROOT / "examples" / "train_lm_cwfl_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -30,7 +32,8 @@ def _imports(path: Path):
 
 def test_the_checked_files_cover_every_slice():
     """The scan covers the modules each slice added, the compiled
-    trajectory's, the sweep's and the observability's among them."""
+    trajectory's, the sweep's, the observability's and the LM training
+    slice's among them."""
     checked = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     assert {"sim/engine.py", "sim/draws.py", "sim/sharded.py",
             "obs/__init__.py", "obs/profiling.py", "core/cwfl.py",
@@ -40,7 +43,9 @@ def test_the_checked_files_cover_every_slice():
             "kernels/ref.py", "checkpoint/__init__.py",
             "checkpoint/ckpt.py", "obs/ledger.py", "obs/manifest.py",
             "obs/monitor.py", "obs/sink.py", "obs/stream.py",
-            "obs/telemetry.py"} <= checked
+            "obs/telemetry.py", "data/tokens.py",
+            "training/dist_steps.py", "training/steps.py"} <= checked
+    assert ROOT / "examples" / "train_lm_cwfl_torch.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
