@@ -3264,10 +3264,13 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
     same inputs, a second launch bitwise the first.  At the full-width
     shapes: device ms against the bounds (five products of 2·D
     operations a kept pair: on the CUDA cores at the f32 rate, and on the
-    tensor cores, as three TF32 passes in f32, in one bf16 pass), the
-    plain version's ms and, at cap 0, SDPA's backward (its forward and
-    backward less its forward).  Returns the kernels-summary rows of the
-    f32 and bf16 backward at Qwen2.5-3B's training shape."""
+    tensor cores, as three TF32 passes in f32, in one bf16 pass; the time
+    must lie above the larger of the tensor-core and the bytes bound),
+    the plain version's ms, the forward kernel's ms with lse and, at cap
+    0, SDPA's backward (its forward and backward less its forward).  Then
+    a line with the workspace the backward allocates at Qwen2.5-3B's
+    shape.  Returns the kernels-summary rows of the f32 and bf16 backward
+    at that shape."""
     bw, peak_f32, peak_bf16, peak_tf32 = card_peaks(
         torch.cuda.get_device_name(0))
     rows = {}
@@ -3299,6 +3302,7 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
         line = {"phase": "lm_train", "kernel": "flash_attention_bwd",
                 "shape": label, "B": B, "H": H, "KV": KV, "S": S, "D": D,
                 "dtype": str(dtype), "window": window, "cap": cap,
+                "design": bwd_design(fa, dtype, D),
                 "rel_err": errs, "tol_rel": tol, "abs_err": abs_errs,
                 "lse_abs_err": lse_err,
                 "tol_lse": LSE_TOL,
@@ -3321,6 +3325,10 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
                                                           do, **mode), reps)
             plain_ms = device_ms(lambda: bwd_ref_fn(q, k, v, o, lse, do,
                                                     **mode), 3)
+            # The forward kernel as training runs it (with lse), beside
+            # the library's forward below.
+            line["fwd_ms"] = device_ms(lambda: fa._forward(q, k, v, *args,
+                                                           True), reps)
             line.update(ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
                         bound_ms_bytes=nbytes / bw * 1e3,
                         bound_ms_cuda_cores=flops / peak_f32 * 1e3,
@@ -3341,6 +3349,8 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
                 line["library_ms"] = (line["library_fwd_bwd_ms"]
                                       - line["library_fwd_ms"])
             rows[label] = line
+            above_bound(f"flash_attention_bwd at {label}", {"ms": ms},
+                        max(line["bound_ms_bytes"], tc))
         emit(line)
         if not (all(e <= tol for e in errs.values()) and line["finite"]
                 and lse_err <= LSE_TOL and line["o_bitwise_serve"]
@@ -3349,6 +3359,13 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
                                  f"its plain version at {label}: {line}")
         del q, k, v, do, o, lse, o_serve, grads
         torch.cuda.empty_cache()
+    B, H, KV, S, D = BWD_SHAPES[0][1:6]
+    emit({"phase": "lm_train", "kernel": "flash_attention_bwd",
+          "workspace_bytes": {
+              str(dt): 4 * fa.bwd_workspace_floats(B, H, KV, S, S, D, dt)
+              for dt in (torch.float32, torch.bfloat16)},
+          "shape": BWD_SHAPES[0][0], "B": B, "H": H, "KV": KV, "S": S,
+          "D": D})
     out = []
     for name, label in (("flash_attention_bwd", "qwen"),
                         ("flash_attention_bwd_bf16", "qwen_bf16")):
@@ -3371,8 +3388,35 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
                             "bf16 on the tensor cores"),
             "bound_ms_f32_cuda_cores": main["bound_ms_cuda_cores"],
             "library_ms": main["library_ms"], "library": main["library"],
-            "shape": label})
+            "design": main["design"], "shape": label})
     return out
+
+
+def bwd_design(fa, dtype, D: int) -> str:
+    """The design of the attention backward that runs at ``dtype`` and
+    head dim ``D``."""
+    if dtype == torch.float32:
+        kv = ("3xTF32 wgmma over the split pass's TF32 halves; dK/dV a "
+              "block per (64-key tile, KV head, query head), one consumer "
+              "warpgroup on S^T, P^T, dV and one on dP^T, dS^T, dK")
+        dq = "dQ a block per 64-query tile"
+        if D == 256:
+            kv += ", K and V lo streamed with the q and dO chunks"
+            dq += ", 32-key tiles, q and dO lo streamed with K and V"
+    elif D < 256:
+        kv = ("bf16 wgmma, P and dS rounded to bf16 in registers; dK/dV a "
+              "block per (128-key tile, KV head, query head), two consumer "
+              "warpgroups of 64 keys in turns")
+        dq = ("dQ a block per 128-query tile, S and dP issued with the "
+              "last tile's dQ product")
+    else:
+        kv = ("bf16 wgmma, P and dS rounded to bf16 in registers; dK/dV a "
+              "block per (64-key tile, KV head, query head), one consumer "
+              "warpgroup on S^T, P^T, dV and one on dP^T, dS^T, dK")
+        dq = "dQ a block per 64-query tile"
+    return (f"{kv}; {dq}; TMA loads from a producer thread; a delta "
+            "pre-pass; the G partials of dK and dV summed in a fixed "
+            "order, no atomics")
 
 
 # The reduced Gemma-2's train steps on the card against the CPU: relative

@@ -33,8 +33,11 @@ through :class:`FlashAttentionFn`, whose forward asks the kernel for the
 row statistics lse = m + log l as well (the serve path passes a null
 pointer and writes none) and whose backward launches
 ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`: a Δ
-pre-pass, a dK/dV kernel and a dQ kernel, f32 sums on the CUDA cores,
-no atomics, so the gradients are bitwise the same run to run).  On the
+pre-pass, a dK/dV kernel whose blocks each take one query head of a KV
+head, a dQ kernel and a fixed-order sum of the dK/dV partials, products
+on ``wgmma``: bf16 as it is, f32 as three TF32 passes over halves that
+a split pass writes; no atomics, so the gradients are bitwise the same
+run to run).  On the
 CPU both directions run the plain versions (`flash_attention_ref` with
 ``return_lse``, `flash_attention_bwd_ref`); autograd never runs through
 the plain forward on a CUDA tensor.
@@ -63,7 +66,7 @@ SOURCE_F32 = _CSRC / "flash_attention.cu"
 SOURCE_BF16 = _CSRC / "flash_attention_sm90.cu"
 #: The forward kernels, one for each dtype.
 SOURCES = (SOURCE_F32, SOURCE_BF16)
-#: The backward kernel, both dtypes (f32 sums on the CUDA cores).
+#: The backward kernels, both dtypes (bf16 and 3×TF32 ``wgmma`` + TMA).
 SOURCE_BWD = _CSRC / "flash_attention_bwd.cu"
 #: The head dimensions both kernels are instantiated for.
 HEAD_DIMS = (32, 64, 128, 256)
@@ -98,7 +101,8 @@ def _library(dtype: torch.dtype):
 @functools.cache
 def _library_bwd(dtype: torch.dtype):
     """The backward kernel's entry point for ``dtype``: q, k, v, o, lse,
-    do, dq, dk, dv and the Δ workspace, then the shapes and the mode."""
+    do, dq, dk, dv and the workspace (:func:`bwd_workspace_floats`), then
+    the shapes and the mode."""
     lib = load_library(SOURCE_BWD)
     fn = (lib.flash_attention_bwd_f32 if dtype == torch.float32
           else lib.flash_attention_bwd_bf16)
@@ -116,6 +120,26 @@ def workspace_floats(B: int, H: int, KV: int, Sq: int, Skv: int,
     carves)."""
     return 2 * (B * H * Sq * D + B * KV * Skv * D
                 + B * KV * D * (-(-Skv // 8) * 8))
+
+
+def bwd_workspace_floats(B: int, H: int, KV: int, Sq: int, Skv: int,
+                         D: int, dtype: torch.dtype) -> int:
+    """Floats of the backward's workspace, in the order
+    ``csrc/flash_attention_bwd.cu`` carves it, each piece rounded up to 64
+    floats: Δ (B, H, Sq); the dK and the dV partials, (G, B, KV, Skv, D)
+    each; for f32 then the TF32 hi and lo halves of q·scale and dO
+    (B, H, Sq, D), of their transposes (B, H, D, Sq rounded up to 8), of
+    k and v (B, KV, Skv, D) and of kᵀ (B, KV, D, Skv rounded up to 8)."""
+    def r(n: int) -> int:
+        return -(-n // 64) * 64
+
+    nkv = B * KV * Skv * D
+    n = r(B * H * Sq) + r(2 * (H // KV) * nkv)
+    if dtype == torch.float32:
+        sq8, skv8 = -(-Sq // 8) * 8, -(-Skv // 8) * 8
+        n += (4 * r(B * H * Sq * D) + 4 * r(B * H * D * sq8) + 4 * r(nkv)
+              + 2 * r(B * KV * D * skv8))
+    return n
 
 
 def _check(q, k, v):
@@ -229,17 +253,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    work = torch.empty(bwd_workspace_floats(B, H, KV, Sq, Skv, D, q.dtype),
+                       dtype=torch.float32, device=q.device)
     fn = _library_bwd(q.dtype)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), delta.data_ptr(), B, H, KV, Sq, Skv, D,
+                 dv.data_ptr(), work.data_ptr(), B, H, KV, Sq, Skv, D,
                  int(causal), int(window), float(cap), float(scale),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"CUDA error {err} (q {tuple(q.shape)}, k "
+                           f"CUDA error {err} (1000 + n: CUresult n encoding "
+                           f"a tensor map; q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, {q.dtype})")
     if q.dtype == torch.float32:
         launches_bwd += 1
