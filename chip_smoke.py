@@ -146,6 +146,20 @@ Phases, each printed as one JSON object per line:
    tokens through the kernel and through the plain version, the kernel's
    last logits no further from the f32 model's than SERVE_BF16_GATE
    times the plain version's;
+9a. mixers — the configurations of the other mixers and front ends
+   (MIXER_RUNS: ``qwen3-moe-235b-a22b`` and ``kimi-k2-1t-a32b``, MoE with
+   qk_norm and Kimi's head dim 112 padded to 128; ``jamba-v0.1-52b``,
+   mamba, MoE and attention; ``internvl2-2b``, the vision front end;
+   ``whisper-tiny``, the audio encoder and cross-attention; ``xlstm-125m``,
+   the mLSTM and sLSTM mixers): each reduced configuration's greedy
+   decoding on the card against the CPU (same tokens, last logits within
+   1e-4, the f32 kernel's launches as counted from the configuration),
+   then ``greedy_decode`` of 16 tokens at the published widths (the MoE
+   models and Jamba in bf16 with their depth cut, the rest whole in f32):
+   prefill s, decode ms a step, peak memory, parameter bytes, the flash
+   kernels' launches against the count from the configuration, and the
+   gate, one prefill over the prompt and the decoded tokens against the
+   decoded path's last logits;
 10. profile — under ``torch.profiler``, the static slice and
    ``head-failure``, the window on the rounds after the first, and one
    CIFAR CWFL-3 round at full width; device time by kernel (for CIFAR
@@ -1552,10 +1566,17 @@ def profile_phase(scenario: str = "paper-static", rounds: int = 6):
 # a 4,096-token window, global ones without; softcap 50), their bf16 and
 # cap-0 variants, a ragged GQA shape in each dtype, and a small shape for
 # every head dim and dtype the kernels are built for (f32: the 3×TF32
-# kernel, bf16: the bf16 one).  q is scaled by 4 so that the scores
-# reach past ±15 and the softcap bends them.
+# kernel, bf16: the bf16 one); then the mixers phase's shapes: Qwen3-MoE's
+# prefill (G = 16), Kimi K2's head dim 112 (q, k and v zero-padded by
+# `kernels.ops.pad_head_dim`, as `flash_attention_op` pads them, the
+# output sliced back), Jamba's bf16 and InternVL2's f32 prefills,
+# whisper's bidirectional encoder and its cross-attention (64 queries on
+# 1,500 frames in the prefill, one in each decode step).  q is scaled by
+# 4 so that the scores reach past ±15 and the softcap bends them.  A
+# row's optional last entry: ``causal`` (default True), ``skv`` (keys,
+# default S).
 FA_SHAPES = (
-    # label, B, H, KV, S, D, dtype, window, cap
+    # label, B, H, KV, S, D, dtype, window, cap[, options]
     ("gemma2_global", 2, 16, 8, 4608, 256, torch.float32, 0, 50.0),
     ("gemma2_local", 2, 16, 8, 4608, 256, torch.float32, 4096, 50.0),
     ("gemma2_global_bf16", 2, 16, 8, 4608, 256, torch.bfloat16, 0, 50.0),
@@ -1567,15 +1588,31 @@ FA_SHAPES = (
     ("ragged_gqa_bf16", 1, 16, 2, 1000, 128, torch.bfloat16, 0, 0.0),
 ) + tuple((f"small_d{D}_{str(dt)[6:]}", 2, 6, 2, 130, D, dt, 40, 50.0)
           for D in (32, 64, 128, 256)
-          for dt in (torch.float32, torch.bfloat16))
+          for dt in (torch.float32, torch.bfloat16)) + (
+    ("qwen3_moe_prefill_bf16", 2, 64, 4, 2048, 128, torch.bfloat16, 0, 0.0),
+    ("kimi_k2_d112_bf16", 1, 64, 8, 2048, 112, torch.bfloat16, 0, 0.0),
+    ("jamba_prefill_bf16", 2, 32, 8, 2048, 128, torch.bfloat16, 0, 0.0),
+    ("internvl2_prefill_f32", 2, 16, 8, 2048, 128, torch.float32, 0, 0.0),
+    ("whisper_encoder", 2, 6, 6, 1500, 64, torch.float32, 0, 0.0,
+     {"causal": False}),
+    ("whisper_cross", 2, 6, 6, 64, 64, torch.float32, 0, 0.0,
+     {"causal": False, "skv": 1500}),
+    ("whisper_cross_decode", 2, 6, 6, 1, 64, torch.float32, 0, 0.0,
+     {"causal": False, "skv": 1500}),
+)
 # Tolerances against the plain version (f32 sums in another order, and
 # bf16 outputs); the full-width shapes sum 4,608 terms a row.
 FA_TOL = {"full_f32": 1e-4, "small_f32": 2e-5, "bf16": 5e-2}
 
 
-def unmasked_pairs(S: int, window: int) -> int:
-    """(query, key) pairs a causal head of S tokens keeps under a window
-    (0: none): the work the attention must do, 4·D operations each."""
+def unmasked_pairs(S: int, window: int, causal: bool = True,
+                   Skv: int | None = None) -> int:
+    """(query, key) pairs a head of S queries keeps: all S · Skv without
+    the causal mask, else those of a causal head of S tokens under a
+    window (0: none): the work the attention must do, 4·D operations
+    each."""
+    if not causal:
+        return S * (S if Skv is None else Skv)
     if window <= 0:
         return S * (S + 1) // 2
     return sum(min(q + 1, window) for q in range(S))
@@ -1615,7 +1652,7 @@ def flex_yardstick(q, k, v, window: int, cap: float):
             "flex_attention (eager)"
 
 
-def flash_kernel_phase(fa, ref_fn):
+def flash_kernel_phase(fa, ref_fn, shapes=FA_SHAPES):
     """flash_attention against its plain version at FA_SHAPES, its output
     poisoned with NaN before each launch; returns the rows of the kernels
     summary for the f32 kernel and the bf16 kernel, each at the main
@@ -1626,18 +1663,29 @@ def flash_kernel_phase(fa, ref_fn):
     accuracy, which is the f32 row's ``bound_ms``."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.ops import pad_head_dim
+
     bw, peak_f32, peak_bf16, peak_tf32 = card_peaks(
         torch.cuda.get_device_name(0))
     rows = {}
-    for label, B, H, KV, S, D, dtype, window, cap in FA_SHAPES:
+    for label, B, H, KV, S, D, dtype, window, cap, *opts in shapes:
+        opts = opts[0] if opts else {}
+        causal, Skv = opts.get("causal", True), opts.get("skv", S)
         g = torch.Generator(DEVICE).manual_seed(S + D + window)
         q = (4 * torch.randn(B, H, S, D, generator=g, device=DEVICE)).to(
             dtype)
-        k = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
-        v = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
-        mode = {"causal": True, "window": window, "cap": cap}
-        out = poisoned_launch(lambda: fa.flash_attention(q, k, v, **mode),
-                              q.shape, dtype)
+        k = torch.randn(B, KV, Skv, D, generator=g, device=DEVICE).to(dtype)
+        v = torch.randn(B, KV, Skv, D, generator=g, device=DEVICE).to(dtype)
+        mode = {"causal": causal, "window": window, "cap": cap}
+        # The kernel's inputs: zero-padded to the head dim it runs D at,
+        # with the real D's scale, as the model's op hands them over.
+        padded = [pad_head_dim(x) for x in (q, k, v)]
+
+        def kernel():
+            return fa.flash_attention(*padded, scale=D ** -0.5,
+                                      **mode)[..., :D]
+
+        out = poisoned_launch(kernel, padded[0].shape, dtype)
         ref = ref_fn(q, k, v, **mode)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
@@ -1646,17 +1694,17 @@ def flash_kernel_phase(fa, ref_fn):
         line = {"phase": "kernel", "kernel": "flash_attention",
                 "shape": label, "B": B, "H": H, "KV": KV, "S": S, "D": D,
                 "dtype": str(dtype), "window": window, "cap": cap,
+                "causal": causal, "Skv": Skv, "kernel_D": padded[0].shape[-1],
                 "max_abs_err": err, "tol": tol,
                 "finite": bool(torch.isfinite(out.float()).all())}
         if not label.startswith("small"):
-            pairs = B * H * unmasked_pairs(S, window)
+            pairs = B * H * unmasked_pairs(S, window, causal, Skv)
             flops = 4 * D * pairs
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             peak = peak_bf16 if dtype == torch.bfloat16 else peak_f32
             bound_bytes, bound_ops = nbytes / bw * 1e3, flops / peak * 1e3
             reps = 10 if S >= 4096 else 30
-            ms = time_cold(lambda: fa.flash_attention(q, k, v, **mode),
-                           reps)
+            ms = time_cold(kernel, reps)
             plain_ms = time_cold(lambda: ref_fn(q, k, v, **mode), reps)
             line.update(ms=ms, plain_ms=plain_ms, flops=flops,
                         bytes=nbytes, bound_ms_bytes=bound_bytes,
@@ -1667,7 +1715,9 @@ def flash_kernel_phase(fa, ref_fn):
             # The library yardstick, never on the port's path: one PyTorch
             # call on the same inputs, held against the plain version too.
             if cap == 0.0:
-                if window > 0:
+                if not causal:
+                    sdpa_kw = {}
+                elif window > 0:
                     qp = torch.arange(S, device=DEVICE)[:, None]
                     kp = torch.arange(S, device=DEVICE)[None, :]
                     sdpa_kw = {"attn_mask": (kp <= qp) & (kp > qp - window)}
@@ -1694,6 +1744,8 @@ def flash_kernel_phase(fa, ref_fn):
     for name, source, suffix in (
             ("flash_attention", "flash_attention.cu", ""),
             ("flash_attention_bf16", "flash_attention_sm90.cu", "_bf16")):
+        if f"gemma2_global{suffix}" not in rows:
+            continue      # a subset of the shapes (scripts/mixers_phase.py)
         main = rows[f"gemma2_global{suffix}"]
         cap0 = rows[f"gemma2_global{suffix}_cap0"]
         ops = main.get("bound_ms_tf32x3", main["bound_ms_operations"])
@@ -1717,38 +1769,49 @@ def flash_kernel_phase(fa, ref_fn):
     return out
 
 
+def greedy_card_against_cpu(fa, cfg, new_tokens: int = 8):
+    """Greedy decoding of ``new_tokens`` after a 20-token prompt (2
+    requests) with the same weights and batch on the CPU and on the card:
+    ``(tokens on the card, on the CPU, the last logits' largest
+    difference, each flash kernel's launches on the card)``."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.training.serve import greedy_decode
+    from repro_torch.utils import tree_map
+
+    params = tfm.init_params(0, cfg, device="cpu")
+    batch = make_batch(1, cfg, 20, 2, kind="prefill", device="cpu")
+    cpu_tokens, cpu_logits = greedy_decode(params, batch, cfg, new_tokens)
+    fa.launches = fa.launches_bf16 = 0
+    tokens, logits = greedy_decode(tree_map(lambda a: a.to(DEVICE), params),
+                                   tree_map(lambda a: a.to(DEVICE), batch),
+                                   cfg, new_tokens)
+    torch.cuda.synchronize()
+    return (tokens.cpu(), cpu_tokens,
+            float((logits.cpu() - cpu_logits).abs().max()),
+            {"f32": fa.launches, "bf16": fa.launches_bf16})
+
+
 def lm_reference_phase(fa):
     """Greedy decoding of the reduced Gemma-2 on the card against the CPU,
     with the same weights and prompt: the same tokens, the last logits
     within 1e-4, and one kernel launch per layer on the card."""
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer as tfm
     from repro_torch.models.config import LayerSpec
-    from repro_torch.models.inputs import make_batch
-    from repro_torch.training.serve import greedy_decode
-    from repro_torch.utils import tree_map
 
     # Gemma-2 9B reduced (d_model 128, 4 layers, head dim 32), its local
     # window cut to 8 so that it bites at a 20-token prompt.
     cfg = get_config("gemma2-9b", reduced=True).replace(
         pattern=(LayerSpec("attn", 8, "dense"), LayerSpec("attn", 0, "dense")))
-    params = tfm.init_params(0, cfg, device="cpu")
-    batch = make_batch(1, cfg, 20, 2, kind="prefill", device="cpu")
-    cpu_tokens, cpu_logits = greedy_decode(params, batch, cfg, 8)
-    fa.launches = 0
-    tokens, logits = greedy_decode(
-        tree_map(lambda a: a.to(DEVICE), params),
-        tree_map(lambda a: a.to(DEVICE), batch), cfg, 8)
-    torch.cuda.synchronize()
-    launches = fa.launches
-    err = float((logits.cpu() - cpu_logits).abs().max())
+    tokens, cpu_tokens, err, launches = greedy_card_against_cpu(fa, cfg)
+    launches = launches["f32"]
     line = {"phase": "reference", "run": "gemma2-reduced-greedy",
             "tokens_cuda": tokens.tolist(), "tokens_cpu": cpu_tokens.tolist(),
             "logits_abs_err": err, "tol_logits_abs": 1e-4,
             "flash_attention_launches": launches,
             "layers": cfg.num_layers}
     emit(line)
-    if not (torch.equal(tokens.cpu(), cpu_tokens) and err <= 1e-4
+    if not (torch.equal(tokens, cpu_tokens) and err <= 1e-4
             and launches == cfg.num_layers):
         raise AssertionError(f"the reduced Gemma-2 on the card disagrees "
                              f"with the CPU: {line}")
@@ -2000,6 +2063,428 @@ def serve_profile_phase(params, batch, cfg) -> None:
     tfm.decode_step(params, token, caches, prompt, cfg)
     _profile("gemma2-9b-decode-step",
              lambda: tfm.decode_step(params, token, caches, prompt, cfg))
+
+
+# ---------------------------------------------------------------------------
+# The other mixers and front ends: MoE with qk_norm, mamba, the vision and
+# audio front ends with cross-attention, xLSTM.
+# ---------------------------------------------------------------------------
+
+# Each configuration served at its published widths: name, dtype, layers
+# kept (None: all of them), requests, prompt (the whole sequence: the
+# VLM's 256 patches and 1,792 tokens; whisper's 64 tokens beside its
+# 1,500 encoder frames).  The MoE configurations run dropless (capacity
+# factor E / k), so that the prefill and the decode steps route alike.
+# Jamba and Qwen3-MoE run in f32 too, where the gate is SERVE_TOL: Jamba
+# at its 8-layer cut (53 GB of f32 params), Qwen3-MoE at 4 layers, the
+# most that fits beside its dropless buffers (its 8 would be 85 GB of
+# params); Kimi K2's one layer is 68 GB in f32, and runs in bf16 only.
+MIXER_RUNS = (
+    ("qwen3-moe-235b-a22b", "bfloat16", 8, 2, 2048),
+    ("qwen3-moe-235b-a22b", "float32", 4, 2, 2048),
+    ("kimi-k2-1t-a32b", "bfloat16", 1, 1, 2048),
+    ("jamba-v0.1-52b", "bfloat16", 8, 2, 2048),
+    ("jamba-v0.1-52b", "float32", 8, 2, 2048),
+    ("internvl2-2b", "float32", None, 2, 2048),
+    ("whisper-tiny", "float32", None, 2, 64),
+    ("xlstm-125m", "float32", None, 2, 2048),
+)
+MIXER_REF_NEW = 8
+MIXER_REF_TOL = 1e-4
+# The gate (`decode_gate`): a prefill over the prompt and the decoded
+# tokens against the decoded path's last logits.  The prefill routes each
+# token as the decoded path did: the two paths round differently, and a
+# router whose k-th and (k+1)-th experts lie within that rounding takes
+# one on one path and the other on the other; with 128 experts and top-8
+# such near-ties are common, and one flip moves a token's output by a whole
+# expert's share, which the later layers and a mamba state carry on.  So
+# that routing cannot hide a fault of the decoded path's own routing, each
+# expert it took must lie within ROUTE_TIE of its prefill router's k-th
+# probability.  f32: SERVE_TOL, JAX's own consistency bound.  bf16: the
+# relative L2 distance of each row, ≤ MIXER_BF16_REL_L2, twice the largest
+# rounding-only reading (PERF.md §6 has the readings, and those of the
+# decoded path broken on purpose, `scripts/mixers_phase.py --parts
+# faults`: a lost state at Jamba reads far above it; one lost token of
+# 2,064 at Qwen3-MoE and Kimi K2 reads under it, and is caught in f32:
+# Qwen3-MoE's 4-layer run here, Kimi K2 only at its reduced width).
+MIXER_BF16_REL_L2 = 0.05
+ROUTE_TIE = {"f32": 1e-5, "bf16": 5e-3}
+
+
+def attention_launches(cfg, new_tokens: int):
+    """The flash kernel's launches in ``greedy_decode`` of ``new_tokens``,
+    counted from the configuration: ``(prefill, after it)``.  The prefill
+    runs every self-attention layer, and for the audio front end the
+    encoder's layers and every decoder block's cross-attention; after it
+    ``greedy_decode`` encodes the audio once more (as JAX's does) and each
+    decode step runs the cross-attention at one query (decode
+    self-attention is plain torch)."""
+    attn = cfg.num_periods * sum(s.mixer == "attn" for s in cfg.pattern)
+    if cfg.frontend != "audio_stub":
+        return attn, 0
+    cross = cfg.num_layers
+    return (attn + cfg.encoder_layers + cross,
+            cfg.encoder_layers + cross * new_tokens)
+
+
+def mixer_reference_run(fa, name: str) -> dict:
+    """The reduced configuration's greedy decoding on the card against the
+    CPU, with the same weights and batch: the same tokens, the last logits
+    within MIXER_REF_TOL, and the f32 kernel's launches as counted from the
+    configuration."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name, reduced=True)
+    tokens, cpu_tokens, err, launches = greedy_card_against_cpu(
+        fa, cfg, MIXER_REF_NEW)
+    want = sum(attention_launches(cfg, MIXER_REF_NEW))
+    line = {"phase": "mixers", "run": f"{name}-reduced", "layers":
+            cfg.num_layers, "d_model": cfg.d_model,
+            "tokens_equal": torch.equal(tokens, cpu_tokens),
+            "logits_abs_err": err, "tol_logits_abs": MIXER_REF_TOL,
+            "launches": launches, "launches_expected": want}
+    emit(line)
+    if not (line["tokens_equal"] and line["logits_abs_err"] <= MIXER_REF_TOL
+            and line["launches"] == {"f32": want, "bf16": 0}):
+        raise AssertionError(f"the reduced {name} on the card disagrees "
+                             f"with the CPU: {line}")
+    return line
+
+
+def slstm_launches_per_token(params, cfg, tokens: int = 8) -> float:
+    """Device launches a token of one sLSTM layer's loop, counted by the
+    profiler over ``tokens`` tokens (the loop's own, its projections
+    before and after it included, spread over the tokens)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.xlstm import slstm_apply
+    from repro_torch.utils import tree_map
+
+    i = next(i for i, s in enumerate(cfg.pattern) if s.mixer == "slstm")
+    p = tree_map(lambda a: a[0], params["layers"][f"b{i}"]["slstm"])
+    x = torch.randn(2, tokens, cfg.d_model, device=DEVICE)
+    slstm_apply(p, x, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        slstm_apply(p, x, cfg)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA)
+    return n / tokens
+
+
+@contextlib.contextmanager
+def gate_records():
+    """While entered, each ``block_apply`` call of the model appends its
+    output at the last position ((B, d) f32) to ``rec["x"]``; each MoE
+    layer its router's probabilities ((T, E) f32) and the experts it
+    takes ((T, k), in the order ``moe_apply`` takes them) to
+    ``rec["moe"]``; each mamba layer its new state h to ``rec["h"]``.
+    Yields ``rec``."""
+    from repro_torch.models import transformer as tfm
+
+    rec = {"x": [], "moe": [], "h": []}
+    block, moe, mamba = (tfm.block_apply, tfm.moe_apply,
+                         tfm._RECURRENT["mamba"])
+
+    def block_rec(*args, **kwargs):
+        out = block(*args, **kwargs)
+        rec["x"].append(out[0][:, -1].float())
+        return out
+
+    def moe_rec(params, x, *, top_k, **kwargs):
+        probs = torch.softmax(x.to(torch.float32) @ params["router"], -1)
+        rec["moe"].append((probs, torch.topk(probs, top_k, dim=-1)[1]))
+        return moe(params, x, top_k=top_k, **kwargs)
+
+    def mamba_rec(*args, **kwargs):
+        y, cache = mamba(*args, **kwargs)
+        rec["h"].append(cache["h"])
+        return y, cache
+
+    tfm.block_apply, tfm.moe_apply = block_rec, moe_rec
+    tfm._RECURRENT["mamba"] = mamba_rec
+    try:
+        yield rec
+    finally:
+        tfm.block_apply, tfm.moe_apply = block, moe
+        tfm._RECURRENT["mamba"] = mamba
+
+
+class _RoutedTorch:
+    """``torch``, but ``topk`` hands out the next of ``routes`` (the
+    experts, (T, k)) with the given probabilities at them: a
+    ``moe_apply`` given it as its module's ``torch`` routes each token as
+    ``routes`` say."""
+
+    def __init__(self, routes):
+        self.routes = list(routes)
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def topk(self, probs, k, dim=-1):
+        e = self.routes.pop(0)
+        return torch.gather(probs, dim, e), e
+
+
+@contextlib.contextmanager
+def routed_as(routes):
+    """While entered, the MoE layers route each token as ``routes`` (one
+    (T, k) tensor a layer call, in call order) say."""
+    from repro_torch.models import moe
+
+    moe.torch = _RoutedTorch(routes)
+    try:
+        yield
+    finally:
+        moe.torch = torch
+
+
+def decoded_routes(dec: dict, B: int, P: int, n: int, M: int) -> list:
+    """The experts the decoded path took (``dec``: the records of
+    ``greedy_decode`` of n tokens after P prompt positions), one (B·(P+n),
+    k) tensor for each of the M MoE layers, in the order of a prefill over
+    all P + n positions."""
+    return [torch.cat([dec["moe"][m][1].view(B, P, -1)]
+                      + [dec["moe"][(1 + j) * M + m][1].view(B, 1, -1)
+                         for j in range(n)], dim=1).view(B * (P + n), -1)
+            for m in range(M)]
+
+
+def gate_anatomy(dec: dict, free: dict, routed: dict, routes: list,
+                 B: int, P: int, n: int) -> dict:
+    """Where the decoded path (``dec``) and a prefill over all P + n
+    positions that routes on its own (``free``) part, layer by layer: the
+    relative L2 distance of each block's output at the last position (a
+    row each); for each MoE layer the tokens whose experts differ (as sets)
+    in the prompt and among the decoded tokens, whether the last token's
+    do, and the router's margin (the k-th probability less the (k+1)-th,
+    in ``free``) at the least and the most decisive of them; for each mamba
+    layer the relative L2 distance of its last state.  Then, for the
+    prefill routed as the decoded path (``routed``): each MoE layer's
+    largest shortfall of a taken expert's probability below its router's
+    own k-th (0 where it takes what its router would)."""
+    def rel(a, b):
+        return ((a - b).flatten(1).norm(dim=1)
+                / b.flatten(1).norm(dim=1)).tolist()
+
+    L, M, Mm = len(free["x"]), len(free["moe"]), len(free["h"])
+    out = {"block_out_rel_l2": [rel(dec["x"][n * L + i], free["x"][i])
+                                for i in range(L)]}
+    if M:
+        flips, shortfall = [], []
+        for m in range(M):
+            probs, e_free = free["moe"][m]
+            k = e_free.shape[1]
+            top = torch.topk(probs, k + 1, dim=-1)[0]
+            margin = (top[:, k - 1] - top[:, k]).view(B, P + n)
+            differ = (routes[m].sort(-1)[0] != e_free.sort(-1)[0]).any(-1)
+            differ = differ.view(B, P + n)
+            flips.append({
+                "prompt": int(differ[:, :P].sum()),
+                "decoded": int(differ[:, P:].sum()),
+                "last": differ[:, -1].tolist(),
+                "margin_flipped": ([float(margin[differ].min()),
+                                    float(margin[differ].max())]
+                                   if differ.any() else None),
+                "margin_min": float(margin.min())})
+            probs = routed["moe"][m][0]
+            kth = torch.topk(probs, k, dim=-1)[0][:, -1]
+            taken = torch.gather(probs, 1, routes[m]).min(-1)[0]
+            shortfall.append(float((kth - taken).clamp(min=0).max()))
+        out["moe_flips"] = flips
+        out["route_shortfall"] = shortfall
+    if Mm:
+        out["mamba_h_rel_l2"] = [rel(dec["h"][n * Mm + i], free["h"][i])
+                                 for i in range(Mm)]
+    return out
+
+
+def decode_gate(params, batch, cfg, P: int, n: int = SERVE_NEW) -> dict:
+    """``greedy_decode`` of n tokens (P prompt positions), then the gate:
+    one prefill over the prompt and the decoded tokens, routed as the
+    decoded path routed each token (a router's near-tie can fall the
+    other way on the two paths; `gate_anatomy` shows where), against the
+    decoded path's last logits: the largest absolute difference and the
+    relative L2 distance of each row; the same for a prefill that routes
+    on its own (``free_``); and `gate_anatomy`."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.serve import greedy_decode
+
+    with gate_records() as dec:
+        tokens, logits = greedy_decode(params, batch, cfg, n)
+    full = dict(batch, tokens=torch.cat([batch["tokens"], tokens], dim=1))
+    B = tokens.shape[0]
+    M = len(dec["moe"]) // (1 + n)
+    routes = decoded_routes(dec, B, P, n, M)
+    with gate_records() as free:
+        want_free = tfm.prefill(params, full, cfg)[0][:, -1].float()
+    with gate_records() as routed, routed_as(routes):
+        want = tfm.prefill(params, full, cfg)[0][:, -1].float()
+    got = logits[:, 0].float()
+
+    def dist(a, b):
+        return (float((a - b).abs().max()),
+                ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist())
+
+    out = {"tokens": tokens, "logits": logits}
+    out["max_abs"], out["rel_l2"] = dist(got, want)
+    out["free_max_abs"], out["free_rel_l2"] = dist(got, want_free)
+    out["argmax_agrees"] = (got.argmax(-1) == want.argmax(-1)).tolist()
+    out["anatomy"] = gate_anatomy(dec, free, routed, routes, B, P, n)
+    return out
+
+
+def mixer_full_width_run(fa, name: str, dtype: str, layers, B: int,
+                         seq: int, probe=None) -> dict:
+    """``greedy_decode`` of SERVE_NEW tokens at the published widths, depth
+    cut to ``layers``, after one untimed run of the same decoding that
+    warms its shapes: prefill s, decode ms a step, peak memory, parameter
+    bytes, each kernel's launches against the count from the
+    configuration, and the gate (prefill over the prompt and the decoded
+    tokens against the decoded path's last logits), with where the two
+    paths part (`gate_anatomy`, from the warm-up run, which must decode
+    the same tokens).  An MoE configuration runs the gate dropless, then
+    its published capacity factor once more, warmed and timed: the
+    configuration's own numbers.  ``probe(params, batch, cfg, P)``, if
+    given (P: the prompt's positions),
+    runs on the gate's model before it is freed and its dict goes into
+    the line under ``probe``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.training.serve import greedy_decode
+    from repro_torch.utils import tree_leaves
+
+    published = get_config(name)
+    cuts = {"dtype": f"{published.param_dtype} -> {dtype}"}
+    cfg = published.replace(param_dtype=dtype, compute_dtype=dtype)
+    if layers is not None and layers != published.num_layers:
+        cfg = cfg.replace(num_layers=layers)
+        cuts["layers"] = f"{published.num_layers} -> {layers}"
+    if cfg.num_experts:
+        cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
+        cuts["capacity_factor"] = (f"{published.capacity_factor} -> "
+                                   f"{cfg.capacity_factor} (dropless)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(0, cfg, device=DEVICE)
+    batch = make_batch(1, cfg, seq, B, kind="prefill", device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params))
+
+    P = seq if cfg.frontend == "vision_stub" else batch["tokens"].shape[1]
+    gate = decode_gate(params, batch, cfg, P)
+    run = timed_greedy_decode(fa, params, batch, cfg)
+    tokens, logits = run["tokens"], run["logits"]
+    kernel = "bf16" if dtype == "bfloat16" else "f32"
+    want_prefill, want_rest = attention_launches(cfg, SERVE_NEW)
+    prefill = dict(zip(("f32", "bf16"), run["prefill_launches"]))
+    total = dict(zip(("f32", "bf16"), run["launches"]))
+    line = {"phase": "mixers", "run": name, "dtype": dtype,
+            "reduced": cuts, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "hd": cfg.hd, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads,
+            "params": tfm.count_params(cfg),
+            "active_params": tfm.count_active_params(cfg),
+            "param_bytes": param_bytes, "batch": B,
+            "prompt_tokens": batch["tokens"].shape[1],
+            "prompt_positions": P,
+            "encoder_frames": cfg.encoder_seq or None,
+            "new_tokens": SERVE_NEW, "init_s": init_s,
+            "init_peak_mem_bytes": init_peak,
+            "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+            "decode_step_ms": run["decode_s"] / SERVE_NEW * 1e3,
+            "decode_tokens_per_s": B * SERVE_NEW / run["decode_s"],
+            "peak_mem_bytes": run["peak"],
+            "device_total_bytes":
+                torch.cuda.get_device_properties(0).total_memory,
+            "launches_prefill": prefill, "launches": total,
+            "launches_expected": {"prefill": want_prefill,
+                                  "after_prefill": want_rest,
+                                  "kernel": kernel},
+            "logits_finite": bool(torch.isfinite(logits.float()).all()),
+            "gate_max_abs": gate["max_abs"], "gate_rel_l2": gate["rel_l2"],
+            "gate": (f"rel_l2 <= {MIXER_BF16_REL_L2}" if kernel == "bf16"
+                     else f"max_abs <= {SERVE_TOL}")
+            + f"; route_shortfall <= {ROUTE_TIE[kernel]}",
+            "gate_free_max_abs": gate["free_max_abs"],
+            "gate_free_rel_l2": gate["free_rel_l2"],
+            "argmax_agrees": gate["argmax_agrees"],
+            "warm_up_bitwise": (torch.equal(gate["tokens"], tokens) and
+                                torch.equal(gate["logits"], logits)),
+            "gate_anatomy": gate["anatomy"], "tokens": tokens.tolist()}
+    if name == "xlstm-125m":
+        line["slstm_launches_per_token"] = slstm_launches_per_token(params,
+                                                                    cfg)
+    del gate, run, logits
+    if cfg.num_experts:
+        pub = cfg.replace(capacity_factor=published.capacity_factor)
+        greedy_decode(params, batch, pub, SERVE_NEW)          # warm-up
+        prun = timed_greedy_decode(fa, params, batch, pub)
+        line["published_capacity"] = {
+            "capacity_factor": pub.capacity_factor,
+            "prefill_s": prun["prefill_s"], "decode_s": prun["decode_s"],
+            "decode_step_ms": prun["decode_s"] / SERVE_NEW * 1e3,
+            "peak_mem_bytes": prun["peak"],
+            "launches_prefill": dict(zip(("f32", "bf16"),
+                                         prun["prefill_launches"])),
+            "launches": dict(zip(("f32", "bf16"), prun["launches"])),
+            "logits_finite": bool(torch.isfinite(
+                prun["logits"].float()).all()),
+            "tokens_equal_dropless": torch.equal(prun["tokens"], tokens)}
+        del prun
+    if probe is not None:
+        line["probe"] = probe(params, batch, cfg, P)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(line)
+    other = "f32" if kernel == "bf16" else "bf16"
+    if not (prefill[kernel] == want_prefill and prefill[other] == 0
+            and total[kernel] == want_prefill + want_rest
+            and total[other] == 0):
+        raise AssertionError(f"{name}: the flash kernels launched "
+                             f"{prefill} times in the prefill and {total} "
+                             f"in all; the configuration counts "
+                             f"{want_prefill} and {want_prefill + want_rest}"
+                             f" of the {kernel} kernel")
+    ok = (line["gate_max_abs"] <= SERVE_TOL if kernel == "f32"
+          else max(line["gate_rel_l2"]) <= MIXER_BF16_REL_L2)
+    ok &= max(line["gate_anatomy"].get("route_shortfall", [0.0])) <= \
+        ROUTE_TIE[kernel]
+    if not (line["logits_finite"] and ok):
+        raise AssertionError(f"{name}: decode disagrees with prefill: "
+                             f"{line}")
+    pub = line.get("published_capacity")
+    if pub and not (pub["logits_finite"] and pub["launches"] == total
+                    and pub["launches_prefill"] == prefill):
+        raise AssertionError(f"{name} at its published capacity factor: "
+                             f"{pub}")
+    return line
+
+
+def mixers_phase(fa) -> dict:
+    """Every configuration of MIXER_RUNS: the reduced one on the card
+    against the CPU, then served at full width.  Returns each kernel's
+    launches over the full-width serves, by configuration."""
+    launches = {}
+    for name, dtype, layers, B, seq in MIXER_RUNS:
+        if name not in launches:
+            mixer_reference_run(fa, name)
+        line = mixer_full_width_run(fa, name, dtype, layers, B, seq)
+        n = launches.setdefault(name, {"f32": 0, "bf16": 0})
+        for kernel in n:
+            n[kernel] += line["launches"][kernel]
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3844,6 +4329,10 @@ def main() -> None:
                                                gate, batch)
     del gate, batch
     torch.cuda.empty_cache()
+    mixers = mixers_phase(fa)
+    for row, kernel in ((fa_row, "f32"), (fa_bf16_row, "bf16")):
+        row["launches_mixers"] = {name: n[kernel] for name, n in
+                                  mixers.items() if n[kernel]}
     profile_phase()
     profile_phase("head-failure")
     cifar_profile_phase()

@@ -59,8 +59,12 @@ def worker(src: str, label: str, parts, shapes, bwd_shapes,
             ln.strip() for ln in log.splitlines()
             if any(w in ln for w in ("registers", "spill", "arning"))]}),
             flush=True)
-    for label_s, B, H, KV, S, D, dtype, window, cap in cs.FA_SHAPES:
-        if "fwd" not in parts or (shapes and label_s not in shapes):
+    for label_s, B, H, KV, S, D, dtype, window, cap, *opts in cs.FA_SHAPES:
+        # Rows with options (no causal mask, Skv ≠ S) or a head dim the
+        # kernels run padded are held to their plain version by
+        # chip_smoke.py alone.
+        if ("fwd" not in parts or opts or D not in fa.HEAD_DIMS
+                or (shapes and label_s not in shapes)):
             continue
         g = torch.Generator(cs.DEVICE).manual_seed(S + D + window)
         q = (4 * torch.randn(B, H, S, D, generator=g, device=cs.DEVICE)).to(

@@ -148,7 +148,7 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    label, B, H, KV, S, D, dtype, window, cap = next(
+    label, B, H, KV, S, D, dtype, window, cap, *_ = next(
         s for s in cs.FA_SHAPES if s[0] == args.shape)
     if dtype != torch.float32:
         raise SystemExit(f"{label} is not an f32 shape")

@@ -5,9 +5,7 @@ cycle of ``LayerSpec``s (the *pattern*) repeated ``num_layers /
 len(pattern)`` times, and the parameters of each pattern position are
 stacked over the repeats (periods).  ``reduced()`` is the ≤ 2-period,
 d_model ≤ 128 variant the CPU tests run.  Dtypes are strings, resolved to
-``torch.dtype`` by ``pdtype`` and ``cdtype``.  The port's transformer runs
-the dense attention decoder; `repro_torch.configs` registers only the
-configurations it can run.
+``torch.dtype`` by ``pdtype`` and ``cdtype``.
 """
 from __future__ import annotations
 

@@ -18,6 +18,27 @@ def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int,
     return w.mul_(d_in ** -0.5).to(dtype)
 
 
+def normal_init(gen: Optional[torch.Generator], shape: tuple, std: float,
+                dtype: torch.dtype, device,
+                slice_elems: int = 1 << 28) -> torch.Tensor:
+    """N(0, std²) of ``shape`` in ``dtype``, drawn in f32 a slice of the
+    leading axes at a time (at most ``slice_elems`` elements each, but at
+    least one row of the trailing two axes), so that a leaf of billions of
+    elements never holds an f32 copy of itself: Kimi K2's ``w_gate`` alone
+    is 5.6 B elements, 22.5 GB in f32.  On the ``meta`` device nothing is
+    drawn."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if gen is None:
+        return out
+    rows = out.view(-1, *shape[-2:])
+    step = max(1, slice_elems // max(1, shape[-2] * shape[-1]))
+    for i in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - i)
+        rows[i:i + n] = torch.randn(n, *shape[-2:], generator=gen,
+                                    device=device).mul_(std)
+    return out
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     dt = x.dtype
     x = x.to(torch.float32)

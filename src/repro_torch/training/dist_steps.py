@@ -30,7 +30,8 @@ from repro_torch.dist.fl_integration import FLPlan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ArchConfig, InputShape
 from repro_torch.optim import sgd
-from repro_torch.training.steps import token_cross_entropy, value_and_grad
+from repro_torch.training.steps import (text_logits, token_cross_entropy,
+                                       value_and_grad)
 from repro_torch.utils.pytree import tree_flatten, tree_size, tree_unflatten
 
 Noise = Union[torch.Generator, list]
@@ -108,7 +109,7 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, *,
 
     def loss_fn(params, batch, w):
         logits, aux = tfm.forward(params, batch, cfg)
-        ce = _weighted_ce(logits, batch["labels"], w)
+        ce = _weighted_ce(text_logits(logits, cfg), batch["labels"], w)
         return ce + cfg.router_aux_weight * aux, ce
 
     def step(params, opt_state, batch, noise: Noise):
@@ -165,7 +166,8 @@ def make_replica_train_step(cfg: ArchConfig, shape: InputShape,
 
     def client_loss(params_k, batch_k):
         logits, aux = tfm.forward(params_k, batch_k, cfg)
-        ce = torch.mean(token_cross_entropy(logits, batch_k["labels"]))
+        ce = torch.mean(token_cross_entropy(text_logits(logits, cfg),
+                                            batch_k["labels"]))
         return ce + cfg.router_aux_weight * aux, ce
 
     def local_update(leaves_k, treedef, batch_k):

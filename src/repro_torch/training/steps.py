@@ -44,12 +44,20 @@ def value_and_grad(loss_fn: Callable, params, *args):
     return (loss.detach(), aux.detach()), list(grads)
 
 
+def text_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The logits of the text positions: the VLM's patch prefix has no
+    labels."""
+    if cfg.frontend == "vision_stub":
+        return logits[:, cfg.prefix_tokens:]
+    return logits
+
+
 def make_loss_fn(cfg: ArchConfig) -> Callable:
-    """(params, batch) -> (loss, ce); loss = ce + the router loss (0 for
-    the dense decoder, the only model the port runs)."""
+    """(params, batch) -> (loss, ce); loss = ce + router_aux_weight × the
+    MoE routers' loss (0 without MoE)."""
     def loss_fn(params, batch):
         logits, aux = tfm.forward(params, batch, cfg)
-        ce = cross_entropy(logits, batch["labels"])
+        ce = cross_entropy(text_logits(logits, cfg), batch["labels"])
         return ce + cfg.router_aux_weight * aux, ce
     return loss_fn
 
@@ -79,7 +87,9 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
-    """(params, token (B, 1), caches, pos) -> (logits (B, 1, V), deltas)."""
-    def step(params, token, caches, pos):
-        return tfm.decode_step(params, token, caches, pos, cfg)
+    """(params, token (B, 1), caches, pos, enc_kv=None) -> (logits (B, 1,
+    V), deltas)."""
+    def step(params, token, caches, pos, enc_kv=None):
+        return tfm.decode_step(params, token, caches, pos, cfg,
+                               enc_kv=enc_kv)
     return step

@@ -137,6 +137,54 @@ def test_flash_attention_op_scales_q_in_bf16_as_the_model(D):
     assert np.all(np.abs(_np(got) - want) <= _bf16_ulp(want))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_op_pads_a_head_dim_the_kernels_lack(dtype,
+                                                             monkeypatch):
+    """Kimi K2's head dim, 7168 / 64 = 112, is not among the kernels'
+    `HEAD_DIMS`: the op hands the kernel wrapper q, k and v zero-padded to
+    128 (q scaled by 112^-0.5 first) and slices the output back; against
+    the JAX model's attention at D = 112 (f32 2e-5, bf16 one ulp)."""
+    rng = np.random.default_rng(112)
+    B, S, H, KV, D = 2, 40, 8, 1, 112
+    args = [(4 * rng.standard_normal((B, S, H, D))).astype(np.float32),
+            rng.standard_normal((B, S, KV, D)).astype(np.float32),
+            rng.standard_normal((B, S, KV, D)).astype(np.float32)]
+    (jq, jk, jv), (tq, tk, tv) = _both(args, dtype)
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), kw["scale"]))
+        assert float(q[..., D:].abs().max()) == 0.0
+        assert float(k[..., D:].abs().max()) == 0.0
+        return flash_attention(q, k, v, **kw)
+
+    monkeypatch.setattr("repro_torch.kernels.ops.flash_attention", spy)
+    got = flash_attention_op(tq, tk, tv)
+    assert seen == [((B, H, S, 128), (B, KV, S, 128), 1.0)]
+    assert got.shape == (B, S, H, D) and got.dtype == tq.dtype
+    want = _np(jax_model_fa(jq, jk, jv, causal=True, block=16))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, atol=2e-5)
+    else:
+        assert np.all(np.abs(_np(got) - want) <= _bf16_ulp(want))
+
+
+def test_flash_attention_op_cross_attention_matches_model_attention():
+    """Whisper's cross-attention through the op: 7 queries (and 1) on 45
+    encoder keys, no mask, against the JAX model's attention."""
+    rng = np.random.default_rng(45)
+    for Sq in (7, 1):
+        q = rng.standard_normal((2, Sq, 4, 32)).astype(np.float32)
+        k = rng.standard_normal((2, 45, 4, 32)).astype(np.float32)
+        v = rng.standard_normal((2, 45, 4, 32)).astype(np.float32)
+        want = np.asarray(jax_model_fa(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=False,
+                                       block=16))
+        got = flash_attention_op(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), causal=False)
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
 @pytest.mark.parametrize("bad", ["rank", "kv_shape", "groups", "dtype",
                                  "device"])
 def test_flash_attention_rejects_bad_inputs(bad):

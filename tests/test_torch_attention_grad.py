@@ -119,6 +119,25 @@ def test_model_layout_grads_match_jax_model_attention(dtype, G, D, mode):
         assert _rel(got, want) <= GRAD_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_layout_grads_through_the_head_dim_pad(dtype):
+    """Kimi K2's D = 112 (G = 8), which the op zero-pads to 128 for the
+    kernels and slices back: the gradients flow through the pad and the
+    slice, against ``jax.vjp`` of the model's attention at D = 112."""
+    B, KV, S, D = 1, 1, 37, 112
+    H = 8 * KV
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(
+        [(B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)], dtype,
+        seed=112)
+    out, grads = _port_grads(flash_attention_op, tq, tk, tv, tdo)
+    jout, jgrads = _jax_grads(lambda q, k, v: jax_model_fa(
+        q, k, v, block=16), jq, jk, jv, jdo)
+    assert _rel(out, jout) <= GRAD_TOL[dtype]
+    for got, want in zip(grads, jgrads):
+        assert got.shape == want.shape and got.dtype == tq.dtype
+        assert _rel(got, want) <= GRAD_TOL[dtype]
+
+
 @pytest.mark.parametrize("G,D,kw", [
     (1, 32, {"causal": True}),
     (2, 64, {"causal": True, "window": 4, "cap": 3.0}),

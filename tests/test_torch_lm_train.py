@@ -50,6 +50,19 @@ LOSS_RTOL = 1e-5
 # difference of one bf16 ulp (2^-8 of the value) may flip; the update is
 # lr times that.
 BF16_PARAM_ATOL = 1e-3
+# xlstm-125m's reduced f32 gradient is ill-conditioned at this batch: a
+# 1e-7 relative change of the params moves it by 9.3e-4 (each leaf's
+# largest change over its largest magnitude, the worst leaf); JAX's f32
+# gradient lies 9.3e-4 from the port's evaluated in float64, and 2.3e-4
+# from JAX's own with mlstm_chunk 8 for 32 (the same function), the
+# port's f32 gradient 4.2e-4 and 2.9e-6.  No f32 evaluation meets
+# GRAD_RTOL there, and two SGD steps at lr 0.1 carry the gap into the
+# second loss (1.6e-3 apart).  Its gradient is held to XLSTM_GRAD_RTOL
+# against JAX's, and to GRAD_RTOL against itself re-chunked
+# (`test_xlstm_gradients_within_their_conditioning`); the models below
+# are held to GRAD_RTOL.
+XLSTM_GRAD_RTOL = 2e-3
+WELL_CONDITIONED = [n for n in ARCH_NAMES if n != "xlstm-125m"]
 WINDOW = 8   # Gemma-2's local window, cut so that it bites at S = 16
 S, B = 16, 4
 
@@ -87,6 +100,21 @@ def _batch(seed, vocab, lead=(B,)):
     return jb, {k: _t(v) for k, v in jb.items()}
 
 
+def _model_batch(seed, jcfg):
+    """``_batch``, and the front end's stub inputs (JAX's shapes, numpy
+    unit normals): the VLM's patch embeddings in front of the S text
+    tokens, whisper's encoder frames."""
+    jb, tb = _batch(seed, jcfg.vocab_size)
+    stub = {"vision_stub": ("patch_embeds", jcfg.prefix_tokens),
+            "audio_stub": ("frames", jcfg.encoder_seq)}.get(jcfg.frontend)
+    if stub is not None:
+        name, length = stub
+        x = np.random.default_rng(seed + 100).standard_normal(
+            (B, length, jcfg.frontend_dim)).astype(np.float32)
+        jb[name], tb[name] = jnp.asarray(x), _t(x)
+    return jb, tb
+
+
 def _carry_plan(jplan):
     p = jplan.plan if hasattr(jplan, "plan") else jplan.state.plan
     state = jplan.state
@@ -115,7 +143,7 @@ def _assert_leaves_close(got, want, atol=None, rtol=None):
             assert err <= atol
 
 
-@pytest.fixture(scope="module", params=ARCH_NAMES)
+@pytest.fixture(scope="module", params=WELL_CONDITIONED)
 def model(request):
     jcfg, tcfg = _configs(request.param)
     jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
@@ -142,7 +170,7 @@ def test_forward_gradients_match_jax(model):
     """``forward``'s CE and its gradient, leaf by leaf, against
     ``jax.value_and_grad`` of the JAX package's loss."""
     jcfg, tcfg, jparams, tparams = model
-    jb, tb = _batch(1, tcfg.vocab_size)
+    jb, tb = _model_batch(1, jcfg)
     (jloss, jce), jgrads = jax.value_and_grad(
         jsteps.make_loss_fn(jcfg), has_aux=True)(jparams, jb)
     (tloss, tce), tgrads = tsteps.value_and_grad(
@@ -155,6 +183,37 @@ def test_forward_gradients_match_jax(model):
             x.numpy() for x in tgrads]), device="cpu"), jgrads,
         rtol=GRAD_RTOL)
     assert all(not p.requires_grad for p in tree_leaves(tparams))
+
+
+def test_xlstm_gradients_within_their_conditioning():
+    """xlstm-125m (see XLSTM_GRAD_RTOL): the gradient against JAX's within
+    its conditioning, and against the port's own with the mLSTM chunked
+    by 8 instead of 32 within GRAD_RTOL."""
+    jcfg, tcfg = _configs("xlstm-125m")
+    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    jb, tb = _model_batch(1, jcfg)
+    (jloss, _), jgrads = jax.value_and_grad(
+        jsteps.make_loss_fn(jcfg), has_aux=True)(jparams, jb)
+    grads = {}
+    for chunk in (tcfg.mlstm_chunk, 8):
+        cfg = tcfg.replace(mlstm_chunk=chunk)
+        (loss, _), grads[chunk] = tsteps.value_and_grad(
+            tsteps.make_loss_fn(cfg), tparams, tb)
+        np.testing.assert_allclose(float(loss), float(jloss),
+                                   rtol=LOSS_RTOL)
+    treedef = jax.tree.structure(jgrads)
+
+    def tree(g):
+        return params_from_jax(jax.tree.unflatten(
+            treedef, [x.numpy() for x in g]), device="cpu")
+
+    _assert_leaves_close(tree(grads[tcfg.mlstm_chunk]), jgrads,
+                         rtol=XLSTM_GRAD_RTOL)
+    _assert_leaves_close(tree(grads[8]), jax.tree.unflatten(
+        treedef, [jnp.asarray(x.numpy())
+                  for x in grads[tcfg.mlstm_chunk]]), rtol=GRAD_RTOL)
 
 
 def test_cross_entropy_matches_jax():
@@ -175,7 +234,7 @@ def test_single_model_train_step_two_steps(model):
     jstate, tstate = jax_sgd(0.1).init(jparams), sgd(0.1).init(tparams)
     jp, tp = jparams, tparams
     for seed in (3, 4):
-        jb, tb = _batch(seed, tcfg.vocab_size)
+        jb, tb = _model_batch(seed, jcfg)
         jp, jstate, jm = jstep(jp, jstate, jb)
         tp, tstate, tm = tstep(tp, tstate, tb)
         for k in ("loss", "ce"):
