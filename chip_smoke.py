@@ -155,11 +155,14 @@ Phases, each printed as one JSON object per line:
    decoding on the card against the CPU (same tokens, last logits within
    1e-4, the f32 kernel's launches as counted from the configuration),
    then ``greedy_decode`` of 16 tokens at the published widths (the MoE
-   models and Jamba in bf16 with their depth cut, the rest whole in f32):
+   models and Jamba in bf16 with their depth cut, the rest whole in f32;
+   ``phi4-mini-3.8b`` whole and ``llama3-405b`` at one layer, in bf16):
    prefill s, decode ms a step, peak memory, parameter bytes, the flash
    kernels' launches against the count from the configuration, and the
    gate, one prefill over the prompt and the decoded tokens against the
-   decoded path's last logits;
+   decoded path's last logits; at every MoE and mamba run the
+   cache-entry check (`cache_entry_check`: each entry the decode steps
+   write against the one that prefill writes at the same position);
 10. profile — under ``torch.profiler``, the static slice and
    ``head-failure``, the window on the rounds after the first, and one
    CIFAR CWFL-3 round at full width; device time by kernel (for CIFAR
@@ -179,7 +182,24 @@ Phases, each printed as one JSON object per line:
    tokens (the first CE near ln V, the second on the same batch lower;
    seconds a step, tokens/s, peak memory, 144 launches of each attention
    kernel a step, one profiled step); and
-   ``examples/train_lm_cwfl_torch.py --steps 300`` under its gate.
+   ``examples/train_lm_cwfl_torch.py --steps 300`` under its gate; the
+   backward's rows include the training geometries of the other mixers
+   (G = 16, Kimi K2's head dim 112 padded, whisper's encoder without a
+   mask and its cross-attention on 1,500 frames, Jamba's, InternVL2's
+   and phi4-mini's layers), each timed beside SDPA's backward;
+12. train — TRAIN_REDUCED: each reduced configuration's shard step on
+   the card against the CPU (remat on against off and the donated step
+   against the functional one, bitwise but for the embedding table):
+   TRAIN_RUNS', Kimi K2's (also at its head dim of 112, padded to 128)
+   and llama3-405b's; then TRAIN_RUNS: three donated shard-mode steps with remat, bf16, at the published
+   width with the depth cut (Qwen3-MoE 4 layers, Jamba one period,
+   InternVL2, whisper-tiny, xlstm-125m and phi4-mini-3.8b whole): seconds
+   a step, tokens/s, peak memory, the attention kernels' launches against
+   the count from the configuration, the loss finite and falling;
+13. serve_twin — ``examples/serve_decode_torch.py`` (the serving builders
+   ``make_prefill_step`` and ``make_decode_step``) with a serving-time
+   window, card against CPU, at the reduced Qwen2.5-3B and at phi4-mini's
+   published width.
 
 The reference phase runs its card and CPU runs in loop mode (its count
 of dead rows reads every sync on the host); the small CNN's reference
@@ -2079,6 +2099,9 @@ def serve_profile_phase(params, batch, cfg) -> None:
 # at its 8-layer cut (53 GB of f32 params), Qwen3-MoE at 4 layers, the
 # most that fits beside its dropless buffers (its 8 would be 85 GB of
 # params); Kimi K2's one layer is 68 GB in f32, and runs in bf16 only.
+# The dense configurations registered last serve here too, in bf16:
+# phi4-mini-3.8b whole, llama3-405b at one of its 126 layers (7.39 B
+# params, 14.8 GB; its 405 B fit no card).
 MIXER_RUNS = (
     ("qwen3-moe-235b-a22b", "bfloat16", 8, 2, 2048),
     ("qwen3-moe-235b-a22b", "float32", 4, 2, 2048),
@@ -2088,6 +2111,8 @@ MIXER_RUNS = (
     ("internvl2-2b", "float32", None, 2, 2048),
     ("whisper-tiny", "float32", None, 2, 64),
     ("xlstm-125m", "float32", None, 2, 2048),
+    ("phi4-mini-3.8b", "bfloat16", None, 2, 2048),
+    ("llama3-405b", "bfloat16", 1, 1, 2048),
 )
 MIXER_REF_NEW = 8
 MIXER_REF_TOL = 1e-4
@@ -2335,7 +2360,143 @@ def decode_gate(params, batch, cfg, P: int, n: int = SERVE_NEW) -> dict:
     out["free_max_abs"], out["free_rel_l2"] = dist(got, want_free)
     out["argmax_agrees"] = (got.argmax(-1) == want.argmax(-1)).tolist()
     out["anatomy"] = gate_anatomy(dec, free, routed, routes, B, P, n)
+    out["routes"] = routes
     return out
+
+
+# The cache-entry check: each entry a decode step writes against the one a
+# prefill over the same tokens, routed as the decoded path was, writes at
+# the same position; the relative L2 distance at each position.  f32: sums
+# in other orders through the layers; bf16: a few ulps (2^-8) of the
+# entries, against 1.0 for an entry never written.
+CACHE_TOL = {"f32": 1e-3, "bf16": 0.05}
+
+
+def decode_recording(params, batch, cfg, n: int, drop=None):
+    """``greedy_decode`` of n tokens, step by step as it runs them, that
+    keeps what the decode steps write: the final caches and each mamba
+    layer's state after each step.  ``drop``: a position whose cache
+    write is skipped (every layer forgets that token's keys, values or
+    state), to show that the check catches it.  Returns ``(tokens,
+    logits, caches, states)``, ``states[j]``: the mamba layers' ``h``
+    (each (periods, B, d_inner, N)) after decode step j, by block."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.serve import apply_cache_deltas, pad_caches
+
+    P = batch["tokens"].shape[1] + (cfg.prefix_tokens
+                                    if cfg.frontend == "vision_stub" else 0)
+    logits, caches = tfm.prefill(params, batch, cfg)
+    caches = pad_caches(caches, cfg, P + n, P)
+    enc_kv = None
+    if cfg.frontend == "audio_stub":
+        enc_kv = tfm.encoder_kv(tfm._first_cross_params(params, cfg),
+                                tfm._encode_audio(params, batch, cfg), cfg)
+    tokens, states = [], []
+    for pos in range(P, P + n):
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        logits, deltas = tfm.decode_step(params, nxt, caches, pos, cfg,
+                                         enc_kv=enc_kv)
+        if pos != drop:
+            caches = apply_cache_deltas(caches, deltas, pos, cfg)
+        states.append({name: c["mixer"]["h"].clone()
+                       for name, c in caches.items() if "h" in c["mixer"]})
+        tokens.append(nxt[:, 0])
+    return torch.stack(tokens, dim=1), logits, caches, states
+
+
+@contextlib.contextmanager
+def scan_states():
+    """While entered, each mamba layer's selective scan records the state
+    after every one of its last ``rec["keep"]`` positions (``rec["h"]``:
+    one (B, keep, d_inner, N) tensor a layer call)."""
+    from repro_torch.models import ssm
+
+    rec = {"keep": 0, "h": []}
+    scan, chunk_fn = ssm.selective_scan, ssm._scan_chunk
+
+    def chunk_rec(params, xc, h, d_state, dt_rank, valid):
+        dA, dBu, _ = ssm._ssm_coeffs(params, xc, d_state, dt_rank,
+                                     valid=valid)
+        A_cum, B_cum = ssm._scan(dA, dBu)
+        h_t = A_cum * h[:, None] + B_cum
+        tail = rec.pop("tail", None)
+        rec["tail"] = (h_t if tail is None else torch.cat([tail, h_t], 1)
+                       )[:, -(rec["keep"] + xc.shape[1]):]
+        return chunk_fn(params, xc, h, d_state, dt_rank, valid)
+
+    def scan_rec(params, xz, d_state, dt_rank, chunk, *args, **kwargs):
+        out = scan(params, xz, d_state, dt_rank, chunk, *args, **kwargs)
+        L = xz.shape[1]
+        c = min(chunk, L)
+        pad = -(-L // c) * c - L       # identity steps after the last
+        tail = rec.pop("tail")
+        rec["h"].append(tail[:, :tail.shape[1] - pad][:, -rec["keep"]:])
+        return out
+
+    ssm.selective_scan, ssm._scan_chunk = scan_rec, chunk_rec
+    try:
+        yield rec
+    finally:
+        ssm.selective_scan, ssm._scan_chunk = scan, chunk_fn
+
+
+def cache_entry_check(params, batch, cfg, P: int, n: int, routes,
+                      tokens=None, drop=None) -> dict:
+    """Position by position, each cache entry the decode steps write
+    (`decode_recording`) against the one a prefill over the prompt and the
+    decoded tokens, routed as the decoded path was (``routes``,
+    `decoded_routes`), writes at the same position: for every attention
+    layer the relative L2 distance of its k and v entries at positions P
+    .. P + n − 1, for every mamba layer that of the state after each of
+    them.  Returns the distances by layer and the worst one with its
+    layer and position; ``tokens``, if given, must be what the decoding
+    decodes."""
+    from repro_torch.models import transformer as tfm
+
+    got_tokens, _, caches, states = decode_recording(params, batch, cfg, n,
+                                                     drop)
+    full = dict(batch, tokens=torch.cat([batch["tokens"], got_tokens],
+                                        dim=1))
+    with scan_states() as rec, routed_as(list(routes)):
+        rec["keep"] = n
+        _, want = tfm.prefill(params, full, cfg)
+
+    def rel(a, b):
+        # a, b: positions first; one distance a position.
+        a, b = a.float().flatten(1), b.float().flatten(1)
+        return ((a - b).norm(dim=1)
+                / b.norm(dim=1).clamp(min=1e-30)).tolist()
+
+    out, worst = {}, (0.0, None, None)
+    mamba = iter(rec["h"])
+    for period in range(cfg.num_periods):
+        for i, spec in enumerate(cfg.pattern):
+            name = f"b{i}"
+            if spec.mixer == "attn":
+                if 0 < spec.window < P + n:
+                    raise ValueError("the check reads full-length caches; "
+                                     f"{name} is a window of {spec.window}")
+                c, w = caches[name]["mixer"], want[name]["mixer"]
+                # (B, positions, KV, hd) -> positions first.
+                dist = [max(x, y) for x, y in zip(
+                    rel(c["k"][period][:, P:P + n].transpose(0, 1),
+                        w["k"][period][:, P:P + n].transpose(0, 1)),
+                    rel(c["v"][period][:, P:P + n].transpose(0, 1),
+                        w["v"][period][:, P:P + n].transpose(0, 1)))]
+            elif spec.mixer == "mamba":
+                h_want = next(mamba)                 # (B, n, d_inner, N)
+                h_got = torch.stack([s[name][period] for s in states], 1)
+                dist = rel(h_got.transpose(0, 1), h_want.transpose(0, 1))
+            else:
+                continue
+            out[f"{name}[{period}]"] = dist
+            j = max(range(n), key=dist.__getitem__)
+            if dist[j] > worst[0]:
+                worst = (dist[j], f"{name}[{period}]", P + j)
+    return {"rel_l2": out, "worst": worst[0], "worst_layer": worst[1],
+            "worst_position": worst[2],
+            "tokens_equal": (None if tokens is None
+                             else torch.equal(got_tokens, tokens))}
 
 
 def mixer_full_width_run(fa, name: str, dtype: str, layers, B: int,
@@ -2383,9 +2544,15 @@ def mixer_full_width_run(fa, name: str, dtype: str, layers, B: int,
 
     P = seq if cfg.frontend == "vision_stub" else batch["tokens"].shape[1]
     gate = decode_gate(params, batch, cfg, P)
+    kernel = "bf16" if dtype == "bfloat16" else "f32"
+    cache = None
+    if cfg.num_experts or any(s.mixer == "mamba" for s in cfg.pattern):
+        cache = cache_entry_check(params, batch, cfg, P, SERVE_NEW,
+                                  gate["routes"], tokens=gate["tokens"])
+        cache["tol"] = CACHE_TOL[kernel]
+        del cache["rel_l2"]
     run = timed_greedy_decode(fa, params, batch, cfg)
     tokens, logits = run["tokens"], run["logits"]
-    kernel = "bf16" if dtype == "bfloat16" else "f32"
     want_prefill, want_rest = attention_launches(cfg, SERVE_NEW)
     prefill = dict(zip(("f32", "bf16"), run["prefill_launches"]))
     total = dict(zip(("f32", "bf16"), run["launches"]))
@@ -2421,7 +2588,8 @@ def mixer_full_width_run(fa, name: str, dtype: str, layers, B: int,
             "argmax_agrees": gate["argmax_agrees"],
             "warm_up_bitwise": (torch.equal(gate["tokens"], tokens) and
                                 torch.equal(gate["logits"], logits)),
-            "gate_anatomy": gate["anatomy"], "tokens": tokens.tolist()}
+            "gate_anatomy": gate["anatomy"], "cache_check": cache,
+            "tokens": tokens.tolist()}
     if name == "xlstm-125m":
         line["slstm_launches_per_token"] = slstm_launches_per_token(params,
                                                                     cfg)
@@ -2461,6 +2629,8 @@ def mixer_full_width_run(fa, name: str, dtype: str, layers, B: int,
           else max(line["gate_rel_l2"]) <= MIXER_BF16_REL_L2)
     ok &= max(line["gate_anatomy"].get("route_shortfall", [0.0])) <= \
         ROUTE_TIE[kernel]
+    if cache is not None:
+        ok &= cache["tokens_equal"] and cache["worst"] <= cache["tol"]
     if not (line["logits_finite"] and ok):
         raise AssertionError(f"{name}: decode disagrees with prefill: "
                              f"{line}")
@@ -3701,7 +3871,10 @@ def stream_record_equal(a, b) -> bool:
 # ---------------------------------------------------------------------------
 
 BWD_SHAPES = (
-    # label, B, H, KV, S, D, dtype, window, cap
+    # label, B, H, KV, S, D, dtype, window, cap[, options: ``causal``
+    # (default True), ``skv`` (keys, default S), ``pad`` (the head dim
+    # zero-padded to the kernels' next, `kernels.ops.pad_head_dim`, and
+    # the gradients sliced back, as the model's op runs Kimi K2's 112)]
     ("qwen", 1, 16, 2, 4096, 128, torch.float32, 0, 0.0),
     ("qwen_bf16", 1, 16, 2, 4096, 128, torch.bfloat16, 0, 0.0),
     ("gemma2_global", 2, 16, 8, 4608, 256, torch.float32, 0, 50.0),
@@ -3712,7 +3885,23 @@ BWD_SHAPES = (
     ("ragged_gqa_bf16", 1, 16, 2, 1000, 128, torch.bfloat16, 0, 0.0),
 ) + tuple((f"small_d{D}_{str(dt)[6:]}", 2, 6, 2, 130, D, dt, 40, 50.0)
           for D in (32, 64, 128, 256)
-          for dt in (torch.float32, torch.bfloat16))
+          for dt in (torch.float32, torch.bfloat16)) + (
+    # The training geometries of the other mixers, front ends and dense
+    # models (`TRAIN_RUNS`, bf16 as they train): G = 16; D = 112 through
+    # the pad; Jamba's and InternVL2's layers (the VLM's 256 patch
+    # positions and 3,840 tokens); whisper's encoder (no mask)
+    # and its cross-attention (4,096 queries on 1,500 frames); phi4-mini.
+    ("qwen3_moe_bf16", 1, 64, 4, 4096, 128, torch.bfloat16, 0, 0.0),
+    ("kimi_k2_d112_bf16", 1, 64, 8, 4096, 112, torch.bfloat16, 0, 0.0,
+     {"pad": True}),
+    ("jamba_bf16", 1, 32, 8, 4096, 128, torch.bfloat16, 0, 0.0),
+    ("internvl2_bf16", 2, 16, 8, 4096, 128, torch.bfloat16, 0, 0.0),
+    ("whisper_encoder_bf16", 2, 6, 6, 1500, 64, torch.bfloat16, 0, 0.0,
+     {"causal": False}),
+    ("whisper_cross_bf16", 2, 6, 6, 4096, 64, torch.bfloat16, 0, 0.0,
+     {"causal": False, "skv": 1500}),
+    ("phi4_mini_bf16", 2, 24, 8, 4096, 128, torch.bfloat16, 0, 0.0),
+)
 # Each gradient's largest error over its largest magnitude, against the
 # plain backward on the same o and lse: f32 sums in another order; bf16
 # outputs (one rounding, 2^-8 of the value, plus the sums').
@@ -3722,17 +3911,19 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 LSE_TOL = 1e-3
 
 
-def sdpa_backward(q, k, v, do):
+def sdpa_backward(q, k, v, do, is_causal: bool = True,
+                  scale: float | None = None):
     """The library yardstick at cap 0: ``scaled_dot_product_attention``
-    (causal, ``enable_gqa``) and ``torch.autograd.grad`` through it, and
-    its forward alone; never on the port's path."""
+    (``enable_gqa``) and ``torch.autograd.grad`` through it, and its
+    forward alone; never on the port's path."""
     import torch.nn.functional as F
 
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
     def forward():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(qg, kg, vg,
+                                              is_causal=is_causal,
+                                              enable_gqa=True, scale=scale)
 
     def both():
         return torch.autograd.grad(forward(), (qg, kg, vg), do)
@@ -3740,7 +3931,7 @@ def sdpa_backward(q, k, v, do):
     return forward, both
 
 
-def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
+def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn, shapes=BWD_SHAPES) -> list:
     """The attention backward kernel against its plain version at
     BWD_SHAPES: the forward kernel run with its row statistics (lse,
     against the plain forward's; o bitwise the serve path's, which
@@ -3755,29 +3946,45 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
     0, SDPA's backward (its forward and backward less its forward).  Then
     a line with the workspace the backward allocates at Qwen2.5-3B's
     shape.  Returns the kernels-summary rows of the f32 and bf16 backward
-    at that shape."""
+    at that shape (none when ``shapes`` leaves it out), with the other
+    full-width rows' times under ``geometries``."""
+    from repro_torch.kernels.ops import pad_head_dim
+
     bw, peak_f32, peak_bf16, peak_tf32 = card_peaks(
         torch.cuda.get_device_name(0))
     rows = {}
-    for label, B, H, KV, S, D, dtype, window, cap in BWD_SHAPES:
+    for label, B, H, KV, S, D, dtype, window, cap, *opt in shapes:
+        opt = opt[0] if opt else {}
+        causal, Skv = opt.get("causal", True), opt.get("skv", S)
         g = torch.Generator(DEVICE).manual_seed(S + D + window + 1)
         q = (4 * torch.randn(B, H, S, D, generator=g, device=DEVICE)).to(
             dtype)
-        k = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
-        v = torch.randn(B, KV, S, D, generator=g, device=DEVICE).to(dtype)
+        k = torch.randn(B, KV, Skv, D, generator=g, device=DEVICE).to(dtype)
+        v = torch.randn(B, KV, Skv, D, generator=g, device=DEVICE).to(dtype)
         do = torch.randn(B, H, S, D, generator=g, device=DEVICE).to(dtype)
-        mode = {"causal": True, "window": window, "cap": cap,
+        mode = {"causal": causal, "window": window, "cap": cap,
                 "scale": D ** -0.5}
-        args = (mode["causal"], window, cap, mode["scale"])
-        o, lse = poisoned_outputs(fa, lambda: fa._forward(q, k, v, *args,
-                                                          True))
-        o_serve = fa._forward(q, k, v, *args, False)[0]
+        args = (causal, window, cap, mode["scale"])
+        # The kernels' operands: the head dim padded where the row says
+        # so (the model's op pads Kimi K2's 112 to 128), the gradients
+        # sliced back to D.
+        kq, kk, kv_, kdo = ((pad_head_dim(x) for x in (q, k, v, do))
+                            if opt.get("pad") else (q, k, v, do))
+
+        def kernel_bwd(o, lse):
+            return tuple(x[..., :D].contiguous() if opt.get("pad") else x
+                         for x in fa.flash_attention_bwd(
+                             kq, kk, kv_, o, lse, kdo, **mode))
+
+        o, lse = poisoned_outputs(fa, lambda: fa._forward(kq, kk, kv_,
+                                                          *args, True))
+        o_serve = fa._forward(kq, kk, kv_, *args, False)[0]
         ref_o, ref_lse = ref_fn(q, k, v, return_lse=True, **mode)
         lse_err = float((lse - ref_lse).abs().max())
-        grads = poisoned_outputs(fa, lambda: fa.flash_attention_bwd(
-            q, k, v, o, lse, do, **mode))
-        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **mode)
-        want = bwd_ref_fn(q, k, v, o, lse, do, **mode)
+        grads = poisoned_outputs(fa, lambda: kernel_bwd(o, lse))
+        again = kernel_bwd(o, lse)
+        o_model = o[..., :D] if opt.get("pad") else o
+        want = bwd_ref_fn(q, k, v, o_model, lse, do, **mode)
         torch.cuda.synchronize()
         errs = {n: rel_err(a, b)
                 for n, a, b in zip(("dq", "dk", "dv"), grads, want)}
@@ -3786,34 +3993,36 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
         tol = BWD_TOL[dtype]
         line = {"phase": "lm_train", "kernel": "flash_attention_bwd",
                 "shape": label, "B": B, "H": H, "KV": KV, "S": S, "D": D,
+                "Skv": Skv, "causal": causal, "padded_to": kq.shape[-1],
                 "dtype": str(dtype), "window": window, "cap": cap,
-                "design": bwd_design(fa, dtype, D),
+                "design": bwd_design(fa, dtype, kq.shape[-1]),
                 "rel_err": errs, "tol_rel": tol, "abs_err": abs_errs,
                 "lse_abs_err": lse_err,
                 "tol_lse": LSE_TOL,
                 "o_bitwise_serve": bool(torch.equal(o, o_serve)),
-                "o_abs_err": float((o.float() - ref_o.float()).abs().max()),
+                "o_abs_err": float((o_model.float()
+                                    - ref_o.float()).abs().max()),
                 "bitwise_rerun": all(torch.equal(a, b)
                                      for a, b in zip(grads, again)),
                 "finite": all(bool(torch.isfinite(x.float()).all())
                               for x in grads)}
         del ref_o, ref_lse, want, again
         if not label.startswith("small"):
-            pairs = B * H * unmasked_pairs(S, window)
+            pairs = B * H * unmasked_pairs(S, window, causal, Skv)
             flops = 5 * 2 * D * pairs
             nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()
                       + 4 * lse.numel())
             tc = (flops / peak_bf16 if dtype == torch.bfloat16
                   else 3 * flops / peak_tf32) * 1e3
             reps = 5 if S >= 4096 else 20
-            ms = device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
-                                                          do, **mode), reps)
-            plain_ms = device_ms(lambda: bwd_ref_fn(q, k, v, o, lse, do,
-                                                    **mode), 3)
+            ms = device_ms(lambda: fa.flash_attention_bwd(
+                kq, kk, kv_, o, lse, kdo, **mode), reps)
+            plain_ms = device_ms(lambda: bwd_ref_fn(q, k, v, o_model, lse,
+                                                    do, **mode), 3)
             # The forward kernel as training runs it (with lse), beside
             # the library's forward below.
-            line["fwd_ms"] = device_ms(lambda: fa._forward(q, k, v, *args,
-                                                           True), reps)
+            line["fwd_ms"] = device_ms(lambda: fa._forward(
+                kq, kk, kv_, *args, True), reps)
             line.update(ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
                         bound_ms_bytes=nbytes / bw * 1e3,
                         bound_ms_cuda_cores=flops / peak_f32 * 1e3,
@@ -3821,9 +4030,9 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
                         achieved_flops_per_s=flops / (ms * 1e-3),
                         library_ms=None)
             if cap == 0.0 and window == 0:
-                forward, both = sdpa_backward(q, k, v, do)
+                forward, both = sdpa_backward(q, k, v, do, causal)
                 lib = both()
-                want = bwd_ref_fn(q, k, v, o, lse, do, **mode)
+                want = bwd_ref_fn(q, k, v, o_model, lse, do, **mode)
                 line["library"] = "scaled_dot_product_attention backward"
                 line["library_rel_err"] = {
                     n: rel_err(a, b)
@@ -3842,8 +4051,10 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
                 and line["bitwise_rerun"]):
             raise AssertionError(f"the attention backward disagrees with "
                                  f"its plain version at {label}: {line}")
-        del q, k, v, do, o, lse, o_serve, grads
+        del q, k, v, do, o, lse, o_serve, grads, kq, kk, kv_, kdo, o_model
         torch.cuda.empty_cache()
+    if "qwen" not in rows:
+        return []
     B, H, KV, S, D = BWD_SHAPES[0][1:6]
     emit({"phase": "lm_train", "kernel": "flash_attention_bwd",
           "workspace_bytes": {
@@ -3873,7 +4084,18 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn) -> list:
                             "bf16 on the tensor cores"),
             "bound_ms_f32_cuda_cores": main["bound_ms_cuda_cores"],
             "library_ms": main["library_ms"], "library": main["library"],
-            "design": main["design"], "shape": label})
+            "design": main["design"], "shape": label,
+            "geometries": {
+                other: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": max(r["bound_ms_bytes"],
+                                        r["bound_ms_tensor_cores"]),
+                        "library_ms": r["library_ms"],
+                        "max_rel_err": max(r["rel_err"].values()),
+                        "B": r["B"], "H": r["H"], "KV": r["KV"],
+                        "S": r["S"], "Skv": r["Skv"], "D": r["D"],
+                        "causal": r["causal"]}
+                for other, r in rows.items()
+                if r["dtype"] == main["dtype"] and other != label}})
     return out
 
 
@@ -4186,6 +4408,338 @@ def lm_twin_phase() -> dict:
     return line
 
 
+# The other mixers, front ends and dense models trained at their published
+# widths (the train phase): bf16 and remat, as the JAX package's dry run
+# trains them (`src/repro/launch/dryrun.py`: DTYPE_OVERRIDES, remat for
+# train shapes, params and optimizer state donated), through the shard-mode
+# step with donation, JAX's train_4k sequence of 4,096 positions, the
+# global batch cut from 256 to one microbatch of B rows (M = 1), the MoE
+# models at their published capacity factor 1.25; the depth cut to what
+# fits (PERF.md §4 has the reckoning): name, layers (None: all), B, the
+# positions a row, SGD's rate.  xlstm-125m's sLSTM walks the tokens one at
+# a time (host-bound: 41.8 s a step at 4,096, measured on one H100), so it
+# trains 1,024 a row.  The rate: bf16 params round away an update far
+# below their ulp, so 1e-2 moves them in a step; Qwen3-MoE's 128-way
+# routers overshoot at 1e-2 (its load-balance loss rose by 18 % in one
+# step while the CE fell, on one H100), so it takes JAX's default 1e-3.
+TRAIN_RUNS = (
+    ("qwen3-moe-235b-a22b", 4, 1, 4096, 1e-3),
+    ("jamba-v0.1-52b", 8, 1, 4096, 1e-2),
+    ("internvl2-2b", None, 2, 4096, 1e-2),
+    ("whisper-tiny", None, 2, 4096, 1e-2),
+    ("xlstm-125m", None, 1, 1024, 1e-2),
+    ("phi4-mini-3.8b", None, 2, 4096, 1e-2),
+)
+# The reduced configurations whose shard step runs on the card against
+# the CPU (`train_reference_run`): TRAIN_RUNS' and the two that do not
+# train at their published width on one card, Kimi K2 (ROADMAP §1 has the
+# reckoning) and llama3-405b; Kimi K2 also at its published head dim of
+# 112, so that a step runs its MoE and the pad to 128 through the
+# attention's backward.  name, head dim (None: the reduced config's).
+TRAIN_REDUCED = tuple((run[0], None) for run in TRAIN_RUNS) + (
+    ("kimi-k2-1t-a32b", None), ("kimi-k2-1t-a32b", 112),
+    ("llama3-405b", None))
+# The reduced step on the card against the CPU
+# (f32, no channel noise, so that the update is lr times the gradient):
+# each leaf's update within LM_REF_TOL of the CPU's, relative to its
+# largest magnitude; xlstm-125m's gradient is ill-conditioned (a 1e-7
+# change of the params moves it 9e-4; tests/test_torch_lm_train.py's
+# XLSTM_GRAD_RTOL), so its update is held to that.
+TRAIN_REF_TOL = {"xlstm-125m": 2e-3}
+# The embedding table after a step, two runs of the same step: its largest
+# difference over its largest magnitude (a few f32 ulps of a summed row).
+EMBED_RERUN_TOL = 1e-6
+
+
+def train_launches(cfg) -> tuple:
+    """The attention kernels' launches in one remat train step of
+    ``cfg``, counted from the configuration: ``(forward, backward)``.  A
+    checkpointed period runs its attentions twice (the forward, then the
+    recomputation in the backward); the audio encoder is not
+    checkpointed (JAX's is not either), and every decoder block's
+    cross-attention is."""
+    attn = cfg.num_periods * sum(s.mixer == "attn" for s in cfg.pattern)
+    enc = cfg.encoder_layers if cfg.frontend == "audio_stub" else 0
+    cross = cfg.num_layers if cfg.frontend == "audio_stub" else 0
+    periods = attn + cross
+    return 2 * periods + enc, periods + enc
+
+
+def train_reference_run(fa, name: str, head_dim=None) -> dict:
+    """The reduced configuration's shard step (M = 1), its heads
+    ``head_dim`` wide if given, on the card against the CPU from the same
+    params and tokens: the update within LM_REF_TOL (TRAIN_REF_TOL), the
+    loss within it; on the card remat on against off and the donated step
+    against the functional one, bitwise, and the off step against
+    itself."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.optim import sgd
+    from repro_torch.training import dist_steps as ds
+    from repro_torch.utils import tree_leaves, tree_map
+
+    base = get_config(name, reduced=True)
+    if head_dim is not None:
+        base = base.replace(head_dim=head_dim)
+    shape = InputShape("train", LM_REF_S, LM_REF_B, "train")
+    params0 = tfm.init_params(0, base, device="cpu")
+    batch0 = make_batch(2, base, LM_REF_S, LM_REF_B, kind="train",
+                        device="cpu")
+
+    def run(device, remat, donate):
+        cfg = base.replace(remat=remat)
+        params = tree_map(lambda a: a.clone().to(device), params0)
+        batch = tree_map(lambda a: a.to(device), batch0)
+        fn = ds.make_train_step(cfg, shape, lr=0.05, microbatches=1,
+                                donate=donate)
+        new, _, m = fn(params, sgd(0.05).init(params), batch,
+                       torch.Generator(device).manual_seed(0))
+        return tree_map(lambda a: a.cpu(), new), m["loss"].cpu()
+
+    want_p, want_l = run("cpu", True, True)
+    fa.launches = fa.launches_bf16 = 0
+    fa.launches_bwd = fa.launches_bwd_bf16 = 0
+    got_p, got_l = run(DEVICE, True, True)
+    torch.cuda.synchronize()
+    launched = {"f32": fa.launches, "bwd_f32": fa.launches_bwd}
+    plain_p, plain_l = run(DEVICE, False, False)
+    again_p, again_l = run(DEVICE, False, False)
+    remat_p, remat_l = run(DEVICE, True, False)
+    start = [x.float() for x in tree_leaves(params0)]
+
+    def update_err(a, b):
+        # Each leaf's update (new − old) against the CPU's, over its
+        # largest magnitude; read back from the stored params, an update
+        # carries their rounding, one f32 ulp of the leaf's largest param
+        # a side, which is taken off first.
+        errs = []
+        for x, y, s in zip(tree_leaves(a), tree_leaves(b), start):
+            ux, uy = x.float() - s, y.float() - s
+            ulp = float(torch.finfo(torch.float32).eps * s.abs().max())
+            gap = max(float((ux - uy).abs().max()) - 2 * ulp, 0.0)
+            errs.append(gap / float(uy.abs().max()) if uy.abs().max() > 0
+                        else gap)
+        return max(errs)
+
+    def bitwise(a, la, b, lb):
+        # Every leaf but the embedding table bit for bit; the table's
+        # gradient sums a token's rows in the gather's backward
+        # (`index_put_` with accumulate: atomics on the card), in another
+        # order run to run, so it is held to EMBED_RERUN_TOL, the same
+        # for two runs of one step.
+        rest = [(x, y) for k in a if k != "embed"
+                for x, y in zip(tree_leaves(a[k]), tree_leaves(b[k]))]
+        return (torch.equal(la, lb) and all(torch.equal(x, y)
+                                            for x, y in rest)
+                and rel_err(a["embed"], b["embed"]) <= EMBED_RERUN_TOL)
+
+    tol = TRAIN_REF_TOL.get(name, LM_REF_TOL[torch.float32])
+    fwd, bwd = train_launches(base.replace(remat=True))
+    line = {"phase": "train",
+            "run": f"{name}-reduced" + (f"-hd{head_dim}" if head_dim
+                                        else ""),
+            "layers": base.num_layers, "d_model": base.d_model,
+            "hd": base.hd, "num_experts": base.num_experts,
+            "loss_cuda": float(got_l), "loss_cpu": float(want_l),
+            "loss_rel_err": rel_err(got_l, want_l),
+            "update_rel_err": update_err(got_p, want_p), "tol_rel": tol,
+            "remat_bitwise": bitwise(remat_p, remat_l, plain_p, plain_l),
+            "donated_bitwise": bitwise(got_p, got_l, remat_p, remat_l),
+            "plain_bitwise_rerun": bitwise(again_p, again_l, plain_p,
+                                           plain_l),
+            "embed_rel_diff": {
+                "remat": rel_err(remat_p["embed"], plain_p["embed"]),
+                "donated": rel_err(got_p["embed"], remat_p["embed"]),
+                "rerun": rel_err(again_p["embed"], plain_p["embed"])},
+            "tol_embed_rel": EMBED_RERUN_TOL,
+            "launches": launched,
+            "launches_expected": {"f32": fwd, "bwd_f32": bwd}}
+    emit(line)
+    if not (line["loss_rel_err"] <= tol and line["update_rel_err"] <= tol
+            and line["remat_bitwise"] and line["donated_bitwise"]
+            and launched == line["launches_expected"]):
+        raise AssertionError(f"the reduced {name}'s train step on the card: "
+                             f"{line}")
+    return line
+
+
+def train_full_width_run(fa, name: str, layers, B: int, seq: int,
+                         lr: float) -> dict:
+    """Three donated shard-mode steps at the published width, bf16, remat,
+    M = 1, B × seq positions, SGD at ``lr``: steps 1 and 2 on one batch
+    (the second loss below the first), step 3 on another.  Seconds a step, tokens/s,
+    peak memory, each attention kernel's launches a step against
+    `train_launches`."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.fl_integration import make_fl_plan
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.optim import sgd
+    from repro_torch.training import dist_steps as ds
+
+    published = get_config(name)
+    cfg = published.replace(param_dtype="bfloat16",
+                            compute_dtype="bfloat16", remat=True)
+    cuts = {"dtype": f"{published.param_dtype} -> bfloat16",
+            "global_batch": f"256 -> {B}"}
+    if seq != 4096:
+        cuts["seq"] = f"4096 -> {seq}"
+    if layers is not None and layers != published.num_layers:
+        cfg = cfg.replace(num_layers=layers)
+        cuts["layers"] = f"{published.num_layers} -> {layers}"
+    shape = InputShape("train_4k", seq, B, "train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = make_fl_plan(4, 3, 0, snr_db=40.0, device=DEVICE)
+    params = tfm.init_params(0, cfg, device=DEVICE)
+    batches = [make_batch(seed, cfg, seq, B, kind="train",
+                          device=DEVICE) for seed in (1, 2)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fn = ds.make_train_step(cfg, shape, plan=plan, lr=lr,
+                            microbatches=1, donate=True)
+    state = sgd(lr).init(params)
+    noise = torch.Generator(DEVICE).manual_seed(3)
+    steps = []
+    for batch in (batches[0], batches[0], batches[1]):
+        fa.launches = fa.launches_bwd = 0
+        fa.launches_bf16 = fa.launches_bwd_bf16 = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, state, m = fn(params, state, batch, noise)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        steps.append({"s": seconds, "ce": float(m["ce"]),
+                      "loss": float(m["loss"]),
+                      "launches_bf16": fa.launches_bf16,
+                      "launches_bwd_bf16": fa.launches_bwd_bf16,
+                      "launches_f32": fa.launches + fa.launches_bwd})
+    donated = out is params
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = train_launches(cfg)
+    tokens = B * seq
+    line = {"phase": "train", "run": name, "reduced": cuts,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "hd": cfg.hd, "params": tfm.count_params(cfg),
+            "param_bytes": tfm.count_params(cfg) * 2, "batch": B,
+            "seq": seq, "microbatches": 1, "lr": lr,
+            "capacity_factor": (cfg.capacity_factor if cfg.num_experts
+                                else None),
+            "remat": True, "donated": donated, "init_s": init_s,
+            "steps": steps, "step_s": steps[1]["s"],
+            "tokens_per_s": tokens / steps[1]["s"],
+            "peak_mem_bytes": peak,
+            "device_total_bytes":
+                torch.cuda.get_device_properties(0).total_memory,
+            "ce_uniform": math.log(cfg.vocab_size),
+            "launches_expected": {"fwd": fwd, "bwd": bwd}}
+    del params, out, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(line)
+    ok = (donated and all(math.isfinite(x["loss"]) for x in steps)
+          and steps[1]["loss"] < steps[0]["loss"]
+          and all(x["launches_bf16"] == fwd and x["launches_bwd_bf16"] == bwd
+                  and x["launches_f32"] == 0 for x in steps))
+    if not ok:
+        raise AssertionError(f"{name}'s training at full width failed a "
+                             f"check (donated, finite losses, the second "
+                             f"below the first, {fwd} forward and {bwd} "
+                             f"backward launches of the bf16 kernels a "
+                             f"step): {line}")
+    return line
+
+
+def train_phase(fa) -> dict:
+    """Every configuration of TRAIN_REDUCED: its reduced shard step on the
+    card against the CPU; then each of TRAIN_RUNS: three steps at full
+    width.  Returns each bf16 attention kernel's launches over the
+    full-width steps, by configuration."""
+    for name, head_dim in TRAIN_REDUCED:
+        train_reference_run(fa, name, head_dim)
+    launches = {}
+    for name, *run in TRAIN_RUNS:
+        line = train_full_width_run(fa, name, *run)
+        launches[name] = {
+            "bf16": sum(x["launches_bf16"] for x in line["steps"]),
+            "bwd_bf16": sum(x["launches_bwd_bf16"] for x in line["steps"])}
+    return launches
+
+
+# The serve twin (`examples/serve_decode_torch.py`) with a serving-time
+# window, card against CPU on the same weights and prompt: the reduced
+# Qwen2.5-3B (a window of 8 on a 32-token prompt) and phi4-mini-3.8b at its
+# published width, two layers, f32 (a window of 32 on a 64-token prompt).
+# The last logits: the reduced within MIXER_REF_TOL, the published width
+# within TWIN_TOL (f32 sums over 3,072- and 8,192-term rows in other
+# orders).
+TWIN_RUNS = (
+    # arch, full width, layers, batch, prompt, tokens, window
+    ("qwen2.5-3b", False, None, 2, 32, 8, 8),
+    ("phi4-mini-3.8b", True, 2, 1, 64, 4, 32),
+)
+TWIN_TOL = 1e-3
+
+
+def serve_twin_phase(fa) -> dict:
+    """``examples/serve_decode_torch.py``: its ``main`` on the card (the
+    reduced default, 8 tokens), then its ``serve`` with a window at
+    TWIN_RUNS on the card against the CPU: the same tokens, the last
+    logits within tolerance, the f32 kernel once a layer in the prefill.
+    Returns the kernel's launches in the card's runs."""
+    import importlib.util
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.utils import tree_map
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    with contextlib.redirect_stdout(sys.stderr):
+        out = twin.main(["--tokens", "8"])
+    emit({"phase": "serve_twin", "run": "main", "seconds": out["seconds"],
+          "tokens": out["tokens"].tolist()})
+    launches = 0
+    for arch, full, layers, B, prompt, n, window in TWIN_RUNS:
+        cfg = twin.config(arch, full, layers, "float32")
+        params = tfm.init_params(0, cfg, device="cpu")
+        batch = make_batch(1, cfg, prompt, B, kind="prefill", device="cpu")
+        want_t, want_l = twin.serve(params, batch, cfg, n, window)
+        fa.launches = fa.launches_bf16 = 0
+        t0 = time.perf_counter()
+        got_t, got_l = twin.serve(tree_map(lambda a: a.to(DEVICE), params),
+                                  tree_map(lambda a: a.to(DEVICE), batch),
+                                  cfg, n, window)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        tol = TWIN_TOL if full else MIXER_REF_TOL
+        line = {"phase": "serve_twin", "run": arch, "published_width": full,
+                "layers": cfg.num_layers, "d_model": cfg.d_model,
+                "batch": B, "prompt": prompt, "tokens": n,
+                "window_override": window, "card_s": seconds,
+                "tokens_equal": torch.equal(got_t.cpu(), want_t),
+                "logits_abs_err": float((got_l.cpu() - want_l).abs().max()),
+                "tol_logits_abs": tol,
+                "launches": {"f32": fa.launches, "bf16": fa.launches_bf16},
+                "launches_expected": {"f32": cfg.num_layers, "bf16": 0}}
+        launches += fa.launches
+        del params, batch
+        emit(line)
+        if not (line["tokens_equal"] and line["logits_abs_err"] <= tol
+                and line["launches"] == line["launches_expected"]):
+            raise AssertionError(f"the serve twin on the card disagrees "
+                                 f"with the CPU: {line}")
+    return {"f32": launches}
+
+
 def serial_build_seconds(sources) -> float:
     """Seconds of a cold build of ``sources`` with one ``nvcc`` after
     another, into a scratch directory: against the build phase's own
@@ -4347,6 +4901,12 @@ def main() -> None:
     bwd_row["launches"] = qwen["launches_bwd"]
     fa_row["launches_train"] = qwen["launches"]
     lm_twin_phase()
+    trained = train_phase(fa)
+    fa_bf16_row["launches_train_mixers"] = {
+        name: n["bf16"] for name, n in trained.items() if n["bf16"]}
+    bwd_bf16_row["launches_train_mixers"] = {
+        name: n["bwd_bf16"] for name, n in trained.items() if n["bwd_bf16"]}
+    fa_row["launches_serve_twin"] = serve_twin_phase(fa)["f32"]
 
     print(smi, flush=True)
     emit({"kernels": rows})

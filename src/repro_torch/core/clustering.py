@@ -81,6 +81,39 @@ def _sum_in_xla_order(x: torch.Tensor) -> torch.Tensor:
     return _sum_in_xla_order(torch.stack(sums, dim=-1))
 
 
+def _fma_f32(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """fma(a, b, c) of f32 tensors, rounded once to f32: a·b is exact in
+    f64, the f64 sum's error is recovered with a two-sum and folded in by
+    rounding to odd, so the last rounding, to f32, is the only one."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    odd = (s.view(torch.int64) & 1) == 1
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & ~odd, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _sum_sq_in_xla_order(diff: torch.Tensor, jitted: bool) -> torch.Tensor:
+    """Σ diff² over the last axis, f32, as XLA's CPU backend takes the
+    election's ``jnp.sum(diff ** 2, axis=-1)``.  Eagerly the squares are
+    rounded first and summed in `_sum_in_xla_order`.  Under ``jit`` a row
+    of at most 32 terms is one fused loop that contracts each step into an
+    FMA, acc = fma(dᵢ, dᵢ, acc) in index order from 0; above 32 terms XLA
+    rewrites the sum as reduce-windows over the rounded squares, as
+    eagerly."""
+    if not jitted or diff.shape[-1] > 32:
+        return _sum_in_xla_order(diff * diff)
+    acc = torch.zeros(diff.shape[:-1], dtype=torch.float32,
+                      device=diff.device)
+    for i in range(diff.shape[-1]):
+        acc = _fma_f32(diff[..., i], diff[..., i], acc)
+    return acc
+
+
 def snr_features(link_snr: torch.Tensor, adjacency: torch.Tensor,
                  floor_db: float = -30.0) -> torch.Tensor:
     """Per-client SNR profile features (dB, outage links floored)."""
@@ -91,15 +124,18 @@ def snr_features(link_snr: torch.Tensor, adjacency: torch.Tensor,
 
 def make_cluster_plan(link_snr: torch.Tensor, adjacency: torch.Tensor,
                       num_clusters: int, first,
-                      kmeans_iters: int = 50) -> ClusterPlan:
-    """Full offline clustering: K-means on SNR features → heads → ξ_c."""
+                      kmeans_iters: int = 50,
+                      jitted: bool = False) -> ClusterPlan:
+    """Full offline clustering: K-means on SNR features → heads → ξ_c.
+    ``jitted``: elect the heads as JAX does under ``jit`` (its engine's
+    re-clustering inside a run), else as its eager offline phase does."""
     return _plan_from_features(snr_features(link_snr, adjacency), link_snr,
-                               num_clusters, first, kmeans_iters)
+                               num_clusters, first, kmeans_iters, jitted)
 
 
 def _plan_from_features(feats: torch.Tensor, link_snr: torch.Tensor,
-                        num_clusters: int, first,
-                        kmeans_iters: int) -> ClusterPlan:
+                        num_clusters: int, first, kmeans_iters: int,
+                        jitted: bool = False) -> ClusterPlan:
     """`make_cluster_plan` given the (K, K) features."""
     C = num_clusters
     assign, centroids = _kmeans(feats, C, first, kmeans_iters)
@@ -109,13 +145,15 @@ def _plan_from_features(feats: torch.Tensor, link_snr: torch.Tensor,
     # argmin, first occurrence, as JAX's.  A two-member cluster puts both
     # members at the same distance from its centroid in exact arithmetic,
     # so the f32 rounding of the sum of squares picks the head; the sum is
-    # taken in the order XLA takes it on the CPU (`_sum_in_xla_order`).
-    # Fed JAX's own features, this elects JAX's heads in all 207 plans of
-    # a sweep at K = 8, 16, 50 and all 1,050 of one at K = 65, 80, 100,
-    # 127, 200 (C = 2, 3, 5).  The port's own features round log10
-    # otherwise than XLA and agree in fewer (ROADMAP, faults queue).
+    # taken in the order XLA takes it on the CPU, eagerly or under jit
+    # (`_sum_sq_in_xla_order`).  Fed JAX's own features, this elects JAX's
+    # eager heads in all 207 plans of a sweep at K = 8, 16, 50 and all
+    # 1,050 of one at K = 65, 80, 100, 127, 200 (C = 2, 3, 5), and its
+    # jitted heads in the sweep of `tests/test_torch_election.py`.  The
+    # port's own features round log10 otherwise than XLA and agree in
+    # fewer.
     diff = feats[:, None, :] - centroids[None]
-    d2 = _sum_in_xla_order(diff * diff)
+    d2 = _sum_sq_in_xla_order(diff, jitted)
     d2_masked = torch.where(assign[:, None] == clusters[None], d2,
                             torch.inf)
     heads = torch.argmin(d2_masked, dim=0)                        # (C,)

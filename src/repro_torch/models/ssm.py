@@ -12,6 +12,10 @@ JAX's, equal up to rounding.)  Padded steps are identity transitions
 and the scan are plain torch here, as they are ``jnp`` there; a
 hand-written selective-scan kernel is later work (ROADMAP §2).
 
+Under autograd each chunk is checkpointed: the backward rescans it from
+its input and the state carried into it, so training keeps two small
+tensors a chunk instead of every doubling step's.
+
 Decode runs the same code on one token: a chunk of one step, the exact
 recurrence (JAX pads that token to a chunk of identity steps: equal up to
 rounding).
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import dense_init
 
@@ -111,19 +116,38 @@ def selective_scan(params: dict, xz: torch.Tensor, d_state: int,
                  ).reshape(nchunks, chunk)
     h = (torch.zeros(B, d_inner, d_state, dtype=torch.float32,
                      device=xz.device) if h0 is None else h0)
+    # Under autograd each chunk is recomputed in the backward from its
+    # input and carried state (``torch.utils.checkpoint``): the doubling
+    # steps' (B, chunk, d_inner, N) tensors are never kept for a whole
+    # sequence, only a chunk's at a time.  Serving runs the chunks as is.
+    recompute = torch.is_grad_enabled() and (
+        xz.requires_grad or h.requires_grad
+        or any(p.requires_grad for p in params.values()))
     ys = []
     for i in range(nchunks):
         xc = xz[:, i * chunk:(i + 1) * chunk]
-        dA, dBu, Cc = _ssm_coeffs(params, xc, d_state, dt_rank,
-                                  valid=valid[i] if pad else None)
-        A_cum, B_cum = _scan(dA, dBu)
-        h_t = A_cum * h[:, None] + B_cum                # (B, c, d_inner, N)
-        y = torch.einsum("bcdn,bcn->bcd", h_t, Cc)
-        ys.append(y + params["D"] * xc.to(torch.float32))
-        h = h_t[:, -1]
-        del dA, dBu, A_cum, B_cum, h_t
+        v = valid[i] if pad else None
+        if recompute:
+            y, h = checkpoint(_scan_chunk, params, xc, h, d_state, dt_rank,
+                              v, use_reentrant=False)
+        else:
+            y, h = _scan_chunk(params, xc, h, d_state, dt_rank, v)
+        ys.append(y)
     y = torch.cat(ys, dim=1)
     return (y[:, :L] if pad else y), h
+
+
+def _scan_chunk(params: dict, xc: torch.Tensor, h: torch.Tensor,
+                d_state: int, dt_rank: int, valid):
+    """One chunk of the selective scan from the carried state h: ``(y (B,
+    c, d_inner) f32, h at the chunk's last step)``."""
+    dA, dBu, Cc = _ssm_coeffs(params, xc, d_state, dt_rank, valid=valid)
+    A_cum, B_cum = _scan(dA, dBu)
+    del dA, dBu
+    h_t = A_cum * h[:, None] + B_cum                    # (B, c, d_inner, N)
+    del A_cum, B_cum
+    y = torch.einsum("bcdn,bcn->bcd", h_t, Cc)
+    return y + params["D"] * xc.to(torch.float32), h_t[:, -1]
 
 
 def causal_conv(xz: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,

@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.models.attention import decode_attention_delta
@@ -274,20 +275,46 @@ def stack_apply(layers: dict, x: torch.Tensor, cfg: ArchConfig, *,
     summed over the layers."""
     new_caches: dict = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = (cfg.remat and torch.is_grad_enabled() and caches is None
+             and not return_cache)
     for period in range(cfg.num_periods):
-        for i, spec in enumerate(cfg.pattern):
-            name = f"b{i}"
-            cache = (None if caches is None else
-                     tree_map(lambda a: a[period], caches[name]))
-            x, nc, aux_i = block_apply(
-                tree_map(lambda a: a[period], layers[name]), x, cfg, spec,
-                positions=positions, pos=pos, cache=cache, enc_kv=enc_kv,
-                return_cache=return_cache)
-            aux = aux + aux_i
-            if nc is not None:
-                _put(new_caches.setdefault(name, {}), nc, period,
-                     cfg.num_periods)
+        args = (layers, x, cfg, period, positions, pos, caches, enc_kv,
+                return_cache)
+        if remat:
+            # JAX's ``jax.checkpoint`` of a period: autograd keeps the
+            # period's input and recomputes the rest in the backward.
+            x, period_caches, aux_p = checkpoint(_period_apply, *args,
+                                                 use_reentrant=False)
+        else:
+            x, period_caches, aux_p = _period_apply(*args)
+        aux = aux + aux_p
+        for name, nc in period_caches.items():
+            _put(new_caches.setdefault(name, {}), nc, period,
+                 cfg.num_periods)
     return x, (new_caches or None), aux
+
+
+def _period_apply(layers: dict, x: torch.Tensor, cfg: ArchConfig,
+                  period: int, positions: torch.Tensor, pos: Optional[int],
+                  caches: Optional[dict], enc_kv: Optional[dict],
+                  return_cache: bool):
+    """One period of `stack_apply`: ``(x, {b{i}: its cache or deltas},
+    aux)``, the router losses summed within the period, as JAX's
+    ``one_period`` sums them (its scan then sums the periods')."""
+    period_caches = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(cfg.pattern):
+        name = f"b{i}"
+        cache = (None if caches is None else
+                 tree_map(lambda a: a[period], caches[name]))
+        x, nc, aux_i = block_apply(
+            tree_map(lambda a: a[period], layers[name]), x, cfg, spec,
+            positions=positions, pos=pos, cache=cache, enc_kv=enc_kv,
+            return_cache=return_cache)
+        aux = aux + aux_i
+        if nc is not None:
+            period_caches[name] = nc
+    return x, period_caches, aux
 
 
 # ---------------------------------------------------------------------------

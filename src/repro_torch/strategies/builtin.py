@@ -53,12 +53,15 @@ class CWFLStrategy(Strategy):
     def init_batch(self, topology, draws, cfg, trajectories):
         # A seed draws K-means' first centre once; its trajectories share
         # the plan and differ in their noise budget (`cwfl.setup`'s rule).
+        # JAX traces a sweep's setup, so the heads are elected in XLA's
+        # jitted order (a lone run's setup is eager: `init`).
         plans, states = {}, []
         for i, snr in trajectories:
             if i not in plans:
                 plans[i] = cl.make_cluster_plan(
                     topology.link_snr, topology.adjacency, cfg.num_clusters,
-                    draws[i].kmeans_first(topology.num_clients))
+                    draws[i].kmeans_first(topology.num_clients),
+                    jitted=True)
             noise_var = (topology.noise_var if snr is None else
                          ch.snr_db_to_noise_var(topology.total_power, snr))
             states.append(cwfl.state_from_plan(
@@ -93,8 +96,10 @@ class CWFLStrategy(Strategy):
                                 view.link_snr, alive)
 
     def recluster(self, view, num_clusters: int, first: int):
+        # JAX re-clusters inside its jitted round, loop and scan alike, so
+        # the heads are elected in XLA's jitted order.
         return cl.make_cluster_plan(view.link_snr, view.adjacency,
-                                    num_clusters, first)
+                                    num_clusters, first, jitted=True)
 
     def channel_uses(self, num_clients, num_clusters=None,
                      participants=None):

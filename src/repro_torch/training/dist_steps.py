@@ -10,22 +10,25 @@ leading K axis, each client's local SGD steps, then the paper's
 Algorithm-1 aggregation (`repro_torch.core.cwfl.aggregate`) across the
 client axis, through the fused round kernel.
 
-JAX's builders return ``(fn, args_shape_structs, in_shardings)`` for its
-dry-run path over a device mesh.  One card has no mesh, so these return
-the step function alone, and :func:`auto_microbatches` takes the data-
-and model-parallel widths as numbers.  The serve builders with mesh specs
-(``make_prefill_step``, and ``make_decode_step`` with
-``window_override`` and ``replicate_cache_heads``) wait for the mesh
-(ROADMAP §1 item 8); `repro_torch.training.steps` has the one-card ones.
+The serve builders: :func:`make_prefill_step` and
+:func:`make_decode_step` (with JAX's ``window_override``, the long_500k
+sliding-window variant, and ``replicate_cache_heads``, a mesh layout that
+one card already has).
+
+JAX's builders return ``(fn, args_shape_structs, in_shardings)`` (and the
+prefill step its cache's out-shardings) for its dry-run path over a
+device mesh.  One card has no mesh, so these return the step function
+alone, and :func:`auto_microbatches` takes the data- and model-parallel
+widths as numbers.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
 
 from repro_torch.core import cwfl as cwfl_core
-from repro_torch.dist import fl_integration as fli
 from repro_torch.dist.fl_integration import FLPlan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ArchConfig, InputShape
@@ -77,7 +80,7 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, *,
                     plan: Optional[FLPlan] = None, lr: float = 1e-3,
                     microbatches: Optional[int] = None,
                     accum_dtype: torch.dtype = torch.float32,
-                    ce_mode: str = "gather"):
+                    ce_mode: str = "gather", donate: bool = False):
     """Shard-mode train step: CWFL consensus weighting and channel noise,
     gradient accumulation over M microbatches (auto-sized to the
     activation budget), SGD (the paper's optimizer).
@@ -86,13 +89,18 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, *,
     "ce"})``, where JAX's step takes a key: ``noise`` is one unit-normal
     tensor a leaf in leaf order (JAX draws ``normal(k, x.shape,
     x.dtype)`` with one key a leaf) or a ``torch.Generator``.  The params
-    come back new; the old ones are left as they were.
+    come back new (a copy that the update is applied to); the old ones
+    are left as they were.
 
     ``accum_dtype``: the microbatch-gradient accumulator's dtype (bf16
     halves it; the channel noise dominates bf16 rounding).
     ``ce_mode``: ``"resharded"`` is a mesh hint in JAX (batch-shard the
     logits before the CE); on one card it computes what ``"gather"``
-    computes."""
+    computes.
+    ``donate``: JAX's ``donate_argnums=(0, 1)``.  The update is applied
+    to the caller's params, whose tensors come back updated (the old
+    values are gone), instead of to a copy: the same arithmetic, so the
+    same bits, without the copy's bytes."""
     if ce_mode not in ("gather", "resharded"):
         raise ValueError(f"ce_mode is 'gather' or 'resharded', got "
                          f"{ce_mode!r}")
@@ -132,19 +140,45 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, *,
                 del g
                 ls.append(l)
                 cs.append(c)
-            grads = [x / M for x in gsum]
+            grads = [x.div_(M) for x in gsum]
             del gsum
             loss, ce = torch.stack(ls).mean(), torch.stack(cs).mean()
-        grads = fli.add_channel_noise(tree_unflatten(treedef, grads), noise,
-                                      noise_std)
-        updates, opt_state = optimizer.update(tree_flatten(grads)[0],
-                                              opt_state, leaves)
-        del grads
-        new = [p + u.to(p.dtype) for p, u in zip(leaves, updates)]
-        return tree_unflatten(treedef, new), opt_state, {"loss": loss,
-                                                         "ce": ce}
+        if not donate:
+            leaves = [p.clone() for p in leaves]
+        opt_state = _apply_update(optimizer, leaves, grads, opt_state,
+                                  noise, noise_std)
+        out = params if donate else tree_unflatten(treedef, leaves)
+        return out, opt_state, {"loss": loss, "ce": ce}
 
     return step
+
+
+def _apply_update(optimizer, leaves, grads, opt_state, noise: Noise,
+                  noise_std):
+    """The shard step's tail, in place and leaf by leaf, so that at most
+    one leaf's update is alive: g += σ·n
+    (`repro_torch.dist.fl_integration.add_channel_noise`'s sum; n drawn
+    here, in leaf order, when ``noise`` is a generator), then
+    p += the optimizer's update of g (SGD's is leafwise).  Returns the
+    new optimizer state."""
+    if not isinstance(noise, torch.Generator) and len(noise) != len(leaves):
+        raise ValueError(f"{len(noise)} noise tensors for {len(leaves)} "
+                         f"leaves")
+    noisy = not (isinstance(noise_std, (int, float)) and noise_std <= 0.0)
+    new_state = opt_state
+    for i, (p, g) in enumerate(zip(leaves, grads)):
+        if noisy:
+            n = (torch.randn(g.shape, generator=noise, dtype=g.dtype,
+                             device=g.device)
+                 if isinstance(noise, torch.Generator) else noise[i])
+            g.add_(noise_std * n.to(g.dtype))
+            del n
+        (u,), new_state = optimizer.update([g], opt_state, [p])
+        grads[i] = None
+        del g
+        p.add_(u.to(p.dtype))
+        del u
+    return new_state
 
 
 def make_replica_train_step(cfg: ArchConfig, shape: InputShape,
@@ -203,4 +237,54 @@ def make_replica_train_step(cfg: ArchConfig, shape: InputShape,
         stacked, _ = cwfl_core.aggregate(stacked, plan.state, noise)
         return stacked, torch.stack(losses).mean()
 
+    return step
+
+
+def windowed_config(cfg: ArchConfig, window: Optional[int]) -> ArchConfig:
+    """The serving-time sliding window (JAX's ``window_override``, the
+    long_500k variants of full-attention configurations): every attention
+    layer's window becomes ``min(window, its own)`` (its own 0: the
+    override), every other mixer's 0.  ``None`` or 0: ``cfg`` as is."""
+    if not window:
+        return cfg
+    pattern = tuple(
+        dataclasses.replace(s, window=((min(s.window, window) or window)
+                                       if s.mixer == "attn" else 0))
+        for s in cfg.pattern)
+    return cfg.replace(pattern=pattern)
+
+
+def make_prefill_step(cfg: ArchConfig, shape: InputShape):
+    """``(params, batch) -> (last_logits (B, 1, V), caches)``: the prompt
+    (``shape.seq_len`` tokens, ``shape.global_batch`` rows) through the
+    model.  JAX's builder also returns the arguments' shapes and the
+    mesh's shardings; one card has neither."""
+    del shape   # the batch carries its own (B, S)
+
+    def step(params, batch):
+        return tfm.prefill(params, batch, cfg)
+
+    return step
+
+
+def make_decode_step(cfg: ArchConfig, shape: InputShape,
+                     window_override: Optional[int] = None,
+                     replicate_cache_heads: bool = False):
+    """``(params, token (B, 1), caches, pos, enc_kv=None) -> (logits (B, 1,
+    V), deltas)``: one token against a ``shape.seq_len`` cache
+    (`repro_torch.training.serve.pad_caches` of the windowed
+    configuration, ``step.cfg``, lays a prefill's caches out for it).
+
+    ``window_override``: `windowed_config`.  ``replicate_cache_heads``:
+    JAX keeps the KV cache whole on every device of the model axis
+    instead of split over its head dim; one card holds the whole cache
+    already, so the step computes what the default step computes."""
+    del shape, replicate_cache_heads
+    run_cfg = windowed_config(cfg, window_override)
+
+    def step(params, token, caches, pos, enc_kv=None):
+        return tfm.decode_step(params, token, caches, pos, run_cfg,
+                               enc_kv=enc_kv)
+
+    step.cfg = run_cfg
     return step

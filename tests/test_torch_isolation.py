@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch``, nor
 ``chip_smoke.py``, nor the examples ``quickstart_torch.py``,
 ``paper_fig2_torch.py``, ``run_scenario_torch.py``,
-``obs_report_torch.py`` and ``train_lm_cwfl_torch.py`` imports ``jax`` or
-the JAX package ``repro``."""
+``obs_report_torch.py``, ``train_lm_cwfl_torch.py`` and
+``serve_decode_torch.py``, nor the chip phase scripts of the training
+slices, imports ``jax`` or the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -18,7 +19,11 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "paper_fig2_torch.py",
     ROOT / "examples" / "run_scenario_torch.py",
     ROOT / "examples" / "obs_report_torch.py",
-    ROOT / "examples" / "train_lm_cwfl_torch.py"]
+    ROOT / "examples" / "train_lm_cwfl_torch.py",
+    ROOT / "examples" / "serve_decode_torch.py",
+    ROOT / "scripts" / "lm_train_phase.py",
+    ROOT / "scripts" / "mixers_phase.py",
+    ROOT / "scripts" / "train_phase.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -44,8 +49,11 @@ def test_the_checked_files_cover_every_slice():
             "checkpoint/ckpt.py", "obs/ledger.py", "obs/manifest.py",
             "obs/monitor.py", "obs/sink.py", "obs/stream.py",
             "obs/telemetry.py", "data/tokens.py",
-            "training/dist_steps.py", "training/steps.py"} <= checked
+            "training/dist_steps.py", "training/steps.py",
+            "models/ssm.py", "models/moe.py", "models/xlstm.py",
+            "configs/phi4_mini_3_8b.py", "configs/llama3_405b.py"} <= checked
     assert ROOT / "examples" / "train_lm_cwfl_torch.py" in FILES
+    assert ROOT / "examples" / "serve_decode_torch.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -308,10 +308,20 @@ def test_entry_points_need_a_card_unless_told_cpu():
         make_batch(0, cfg, 4, 1)
 
 
-@pytest.mark.parametrize("name", ["phi4-mini-3.8b", "llama3-405b"])
-def test_unported_configurations_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(name)
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_configuration_matches_jax_field_for_field(name):
+    """Every registered configuration, the two dense ones the port
+    registered last (phi4-mini-3.8b, llama3-405b) among them, published
+    and reduced: JAX's fields, and JAX's names."""
+    import dataclasses
+
+    from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
+
+    assert sorted(ARCH_NAMES) == sorted(JAX_ARCH_NAMES)
+    for reduced in (False, True):
+        got = dataclasses.asdict(get_config(name, reduced=reduced))
+        want = dataclasses.asdict(jax_get_config(name, reduced=reduced))
+        assert got == want, name
 
 
 def test_unknown_mixer_is_a_value_error():
