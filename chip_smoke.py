@@ -1625,19 +1625,6 @@ FA_SHAPES = (
 FA_TOL = {"full_f32": 1e-4, "small_f32": 2e-5, "bf16": 5e-2}
 
 
-def unmasked_pairs(S: int, window: int, causal: bool = True,
-                   Skv: int | None = None) -> int:
-    """(query, key) pairs a head of S queries keeps: all S · Skv without
-    the causal mask, else those of a causal head of S tokens under a
-    window (0: none): the work the attention must do, 4·D operations
-    each."""
-    if not causal:
-        return S * (S if Skv is None else Skv)
-    if window <= 0:
-        return S * (S + 1) // 2
-    return sum(min(q + 1, window) for q in range(S))
-
-
 def flex_yardstick(q, k, v, window: int, cap: float):
     """``flex_attention`` set up to compute the kernel's function on these
     inputs: its default D^-0.5 scale, the softcap as its ``score_mod``,
@@ -1684,6 +1671,7 @@ def flash_kernel_phase(fa, ref_fn, shapes=FA_SHAPES):
     import torch.nn.functional as F
 
     from repro_torch.kernels.ops import pad_head_dim
+    from repro_torch.launch.roofline import unmasked_pairs
 
     bw, peak_f32, peak_bf16, peak_tf32 = card_peaks(
         torch.cuda.get_device_name(0))
@@ -3949,6 +3937,7 @@ def fa_bwd_kernel_phase(fa, ref_fn, bwd_ref_fn, shapes=BWD_SHAPES) -> list:
     at that shape (none when ``shapes`` leaves it out), with the other
     full-width rows' times under ``geometries``."""
     from repro_torch.kernels.ops import pad_head_dim
+    from repro_torch.launch.roofline import unmasked_pairs
 
     bw, peak_f32, peak_bf16, peak_tf32 = card_peaks(
         torch.cuda.get_device_name(0))
@@ -4740,22 +4729,387 @@ def serve_twin_phase(fa) -> dict:
     return {"f32": launches}
 
 
-def serial_build_seconds(sources) -> float:
-    """Seconds of a cold build of ``sources`` with one ``nvcc`` after
-    another, into a scratch directory: against the build phase's own
-    (parallel, and cold in a fresh checkout), what building together
-    saves."""
-    import tempfile
+# ---------------------------------------------------------------------------
+# The one-card dry run (`repro_torch.launch`): the meta-device plan of every
+# (arch × input shape), and rows at JAX's long shapes on the card.
+# ---------------------------------------------------------------------------
 
-    from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, _nvcc
+LAUNCH_CHUNK = 1024        # query rows a chunk of the plain attention
+LAUNCH_DECODE_TOL = 1e-2   # bf16 decode attention against the f32 plain
+LAUNCH_PREFILL_BATCH = 2   # the prefill row's batch, a cut for time
+LAUNCH_DECODE_BATCH = 8
+# Kernel 4b at 32,768 rows against its plain version: the largest relative
+# L2 error over blocks of LAUNCH_CHUNK query rows.  A causal row that sees
+# n keys of unit normals has outputs of about n^-1/2, so one absolute
+# limit would hold the late rows, the new geometry, far more loosely than
+# the early ones.  On an NVIDIA H100 80GB HBM3 (700 W) the kernel reads
+# 6.2e-4 and a plain version that drops one 128-key tile in the late rows
+# 6.2e-2 to 6.8e-2; the limit sits between them.
+LAUNCH_32K_REL_L2 = 1e-2
+# The key tile a wrong kernel drops in the late rows, to show the measure
+# sees it: keys [S - 8192, S - 8192 + 128).
+LAUNCH_DROP_TILE = 128
 
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        t0 = time.perf_counter()
-        for source in sources:
-            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o",
-                            f"{tmp}/{source.stem}.so", str(source)],
-                           check=True, capture_output=True)
-        return time.perf_counter() - t0
+
+def chunked_plain_attention(q, k, v, *, causal=True, window=0, cap=0.0,
+                            scale=None, chunk=LAUNCH_CHUNK, drop=None):
+    """`flash_attention_ref`'s arithmetic (f32 scores, an exact softmax) a
+    chunk of query rows at a time, each chunk against the keys its rows
+    may see: at 32,768 rows the whole score matrix of 16 heads would take
+    69 GB.  ``drop``: ``(k0, k1)``, keys masked out of every row (a wrong
+    kernel, for the check's own sensitivity)."""
+    B, H, Sq, D = q.shape
+    KV = k.shape[1]
+    scale = D ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    for a in range(0, Sq, chunk):
+        b = min(a + chunk, Sq)
+        lo = max(0, a - window + 1) if window > 0 else 0
+        hi = b if causal else k.shape[2]
+        qg = (q[:, :, a:b].float() * scale).reshape(B, KV, H // KV, b - a, D)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg, k[:, :, lo:hi].float())
+        if cap > 0.0:
+            s = cap * torch.tanh(s / cap)
+        qp = torch.arange(a, b, device=q.device)[:, None]
+        kp = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = torch.ones_like(qp >= kp)
+        if causal:
+            mask &= kp <= qp
+        if window > 0:
+            mask &= kp > qp - window
+        if drop is not None:
+            mask &= (kp < drop[0]) | (kp >= drop[1])
+        p = torch.softmax(s.masked_fill(~mask, -torch.inf), dim=-1)
+        o = torch.einsum("bkgqs,bksd->bkgqd", p, v[:, :, lo:hi].float())
+        out[:, :, a:b] = o.reshape(B, H, b - a, D).to(q.dtype)
+        del s, p, o
+    return out
+
+
+def launch_plan_phase() -> list:
+    """Every (arch × input shape) planned on the meta device: one line a
+    row; each ``ok``, ``does_not_fit`` with its bytes or ``skip`` with
+    JAX's reason; Kimi K2 × train_4k does not fit, whisper × long_500k is
+    skipped."""
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import INPUT_SHAPES
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    rows = []
+    for arch in ARCH_NAMES:
+        for shape in INPUT_SHAPES:
+            r = dryrun.plan(arch, shape, card_bytes=card)
+            rows.append(r)
+            emit({"phase": "launch_plan", **r})
+    seconds = time.perf_counter() - t0
+    status = {(r["arch"], r["shape"]): r["status"] for r in rows}
+    emit({"phase": "launch_plan", "rows": len(rows), "seconds": seconds,
+          "status": {s: sum(v == s for v in status.values())
+                     for s in ("ok", "does_not_fit", "skip")}})
+    if (len(rows) != 40
+            or status[("kimi-k2-1t-a32b", "train_4k")] != "does_not_fit"
+            or status[("whisper-tiny", "long_500k")] != "skip"
+            or any(v not in ("ok", "does_not_fit", "skip")
+                   for v in status.values())):
+        raise AssertionError(f"the dry run's plan: {status}")
+    return rows
+
+
+def launch_row_line(rec: dict) -> dict:
+    """The line of a row run on the card: its cut, predicted and measured
+    peak, seconds a step and roofline terms."""
+    run, roof = rec.get("run", {}), rec.get("roofline", {})
+    return {"phase": "launch", "arch": rec["arch"], "shape": rec["shape"],
+            "status": rec["status"], "reduced": rec.get("reduced"),
+            "batch": rec.get("global_batch"),
+            "layers": rec.get("num_layers"),
+            "window_override": rec.get("window_override"),
+            "predicted_peak_bytes": rec.get("bytes", {}).get("total"),
+            "predicted": rec.get("bytes"),
+            "peak_bytes": run.get("peak_bytes"),
+            "step_s": run.get("step_s"), "steps_s": run.get("steps_s"),
+            "finite": run.get("finite"),
+            "flops": roof.get("flops"), "hbm_bytes": roof.get("hbm_bytes"),
+            "t_compute_s": roof.get("t_compute_s"),
+            "t_memory_s": roof.get("t_memory_s"), "bound": roof.get("bound"),
+            "model_flops": roof.get("model_flops"), "mfu": roof.get("mfu"),
+            "roofline_share": roof.get("share"), "error": rec.get("error")}
+
+
+def launch_run(fa, arch: str, shape: str, *, max_batch=None,
+               reps: int = 2, params=None) -> dict:
+    """`dryrun.run_one`'s row with the bf16 kernel's launches counted."""
+    from repro_torch.launch import dryrun
+
+    fa.launches = fa.launches_bf16 = 0
+    rec = dryrun.run_one(arch, shape, device=DEVICE, reps=reps,
+                         max_batch=max_batch, params=params)
+    line = launch_row_line(rec)
+    line["launches"] = {"f32": fa.launches, "bf16": fa.launches_bf16}
+    emit(line)
+    if rec["status"] != "ok" or not rec["run"]["finite"]:
+        raise AssertionError(f"{arch} × {shape} on the card: {line}")
+    return line
+
+
+def blockwise_rel_l2(got, want, rows: int = LAUNCH_CHUNK) -> list:
+    """``‖got − want‖ / ‖want‖`` over each block of ``rows`` query rows,
+    all batches and heads together."""
+    out = []
+    for a in range(0, want.shape[2], rows):
+        w = want[:, :, a:a + rows].float()
+        d = got[:, :, a:a + rows].float() - w
+        out.append(float(torch.linalg.vector_norm(d)
+                         / torch.linalg.vector_norm(w)))
+    return out
+
+
+def launch_kernel_32k(fa) -> dict:
+    """Kernel 4b at Qwen2.5-3B's prefill_32k geometry, (1, 16, 2, 32,768,
+    128, causal): against its plain version run in query chunks, held to
+    LAUNCH_32K_REL_L2 in every block of rows; the same measure of a plain
+    version that drops a key tile in the late rows must exceed it.  Timed
+    beside SDPA (``enable_gqa``); its operations bound."""
+    import torch.nn.functional as F
+    from repro_torch.launch.roofline import unmasked_pairs
+
+    B, H, KV, S, D = 1, 16, 2, 32768, 128
+    g = torch.Generator(DEVICE).manual_seed(32)
+    q, k, v = (torch.randn(B, n, S, D, generator=g, device=DEVICE).to(
+        torch.bfloat16) for n in (H, KV, KV))
+    fa.launches_bf16 = 0
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = chunked_plain_attention(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    rel = blockwise_rel_l2(got, want)
+    k0 = S - 8192
+    wrong = blockwise_rel_l2(chunked_plain_attention(
+        q, k, v, causal=True, drop=(k0, k0 + LAUNCH_DROP_TILE)), want)
+    bitwise_rerun = torch.equal(got, fa.flash_attention(q, k, v,
+                                                        causal=True))
+    ops = 4.0 * D * H * B * unmasked_pairs(S, 0)
+    bytes_ = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bw, _, bf16_peak, _ = card_peaks(torch.cuda.get_device_name(0))
+    bound_ms = max(ops / bf16_peak, bytes_ / bw) * 1e3
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=5)
+    sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=5)
+    line = {"phase": "launch", "kernel": "flash_attention_bf16",
+            "geometry": [B, H, KV, S, D, "causal"], "max_abs_err": err,
+            "rel_l2_blocks": {"rows": LAUNCH_CHUNK, "max": max(rel),
+                              "first": rel[0], "last": rel[-1]},
+            "tol": LAUNCH_32K_REL_L2,
+            "wrong_kernel_rel_l2": {"drop_keys": [k0, k0 + LAUNCH_DROP_TILE],
+                                    "max": max(wrong), "last": wrong[-1]},
+            "bitwise_rerun": bitwise_rerun,
+            "ms": ms, "sdpa_ms": sdpa_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "ops": ops}
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    emit(line)
+    above_bound("flash_attention_bf16 at 32k", {"ms": ms}, bound_ms)
+    if not (max(rel) <= LAUNCH_32K_REL_L2 < max(wrong) and bitwise_rerun):
+        raise AssertionError(f"kernel 4b at 32,768 rows: {line}")
+    return line
+
+
+def gemma_decode_32k(fa) -> dict:
+    """gemma2-9b × decode_32k, whole depth, bf16: the planned step at the
+    plan's batch (cut further to LAUNCH_DECODE_BATCH), then the gate at
+    batch 1: the decode of token 32,768 against a 32,768-token prefill
+    (`decode_gate`, relative L2 within MIXER_BF16_REL_L2), on the same
+    parameters."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.inputs import make_batch
+
+    arch, shape_name = "gemma2-9b", "decode_32k"
+    rec = dryrun.plan(arch, shape_name, max_batch=LAUNCH_DECODE_BATCH,
+                      card_bytes=torch.cuda.get_device_properties(0)
+                      .total_memory)
+    cfg, shape = dryrun.planned_config(rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tfm.init_params(0, cfg, device=DEVICE)
+    line = launch_run(fa, arch, shape_name, max_batch=LAUNCH_DECODE_BATCH,
+                      reps=3, params=params)
+    P = shape.seq_len - 1
+    batch = make_batch(7, cfg, P, 1, kind="prefill", device=DEVICE)
+    fa.launches_bf16 = 0
+    t0 = time.perf_counter()
+    gate = decode_gate(params, batch, cfg, P, n=1)
+    torch.cuda.synchronize()
+    gate_line = {"phase": "launch", "arch": arch, "gate": "decode_32k",
+                 "prompt": P, "decoded_position": P,
+                 "rel_l2": gate["rel_l2"], "max_abs": gate["max_abs"],
+                 "argmax_agrees": gate["argmax_agrees"],
+                 "limit": MIXER_BF16_REL_L2, "seconds":
+                 time.perf_counter() - t0,
+                 "launches_bf16": fa.launches_bf16}
+    emit(gate_line)
+    del params, batch, gate
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not max(gate_line["rel_l2"]) <= MIXER_BF16_REL_L2:
+        raise AssertionError(f"gemma2-9b × decode_32k: {line} {gate_line}")
+    return {"row": line, "gate": gate_line}
+
+
+def decode_attention_524k() -> dict:
+    """`decode_attention_delta` at 524,288 cache positions with gemma2-9b's
+    geometry (16 heads on 8 KV heads of 256, softcap 50), bf16, against
+    a plain f32 computation a chunk of positions at a time."""
+    from repro_torch.models.attention import decode_attention_delta
+
+    B, H, KV, D, S, cap = 1, 16, 8, 256, 524288, 50.0
+    g = torch.Generator(DEVICE).manual_seed(5)
+    kc, vc = (torch.randn(B, S, KV, D, generator=g, device=DEVICE).to(
+        torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, 1, H, D, generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    kn, vn = (torch.randn(B, 1, KV, D, generator=g, device=DEVICE).to(
+        torch.bfloat16) for _ in range(2))
+    pos = S - 1
+    got = decode_attention_delta(q, kc, vc, kn, vn, pos, cap=cap).float()
+    qg = (q.float() * D ** -0.5).reshape(B, KV, H // KV, D)
+    scores = []
+    for a in range(0, S, 65536):
+        scores.append(torch.einsum("bkgd,bskd->bkgs", qg,
+                                   kc[:, a:a + 65536].float()))
+    scores.append(torch.einsum("bkgd,bkd->bkg", qg,
+                               kn[:, 0].float())[..., None])
+    s = torch.cat(scores, dim=-1)
+    s = cap * torch.tanh(s / cap)
+    s[..., pos:S] = -torch.inf          # slots at and after pos are empty
+    p = torch.softmax(s, dim=-1)
+    want = torch.zeros(B, KV, H // KV, D, device=DEVICE)
+    for a in range(0, S, 65536):
+        want += torch.einsum("bkgs,bskd->bkgd", p[..., a:a + 65536],
+                             vc[:, a:a + 65536].float())
+    want += p[..., -1:] * vn[:, 0, :, None].float()
+    want = want.reshape(B, 1, H, D)
+    err = float((got - want).abs().max() / want.abs().max())
+    line = {"phase": "launch", "check": "decode_attention_524k",
+            "positions": S, "geometry": [B, H, KV, D], "cap": cap,
+            "rel_max_err": err, "tol": LAUNCH_DECODE_TOL}
+    del kc, vc, s, p
+    torch.cuda.empty_cache()
+    emit(line)
+    if not err <= LAUNCH_DECODE_TOL:
+        raise AssertionError(f"decode attention at 524,288 positions: "
+                             f"{line}")
+    return line
+
+
+def windowed_decode_reference() -> dict:
+    """phi4-mini's long_500k variant reduced: one decode step at position
+    524,287 of a ring cache of the windowed config's slots (far past the
+    window), on the card against the CPU from the same caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import InputShape
+    from repro_torch.training import dist_steps as ds
+    from repro_torch.utils import tree_map
+
+    cfg = get_config("phi4-mini-3.8b", reduced=True)
+    shape = InputShape("long_500k", 524288, 2, "decode")
+    step = ds.make_decode_step(cfg, shape, window_override=32)
+    specs = dryrun.decode_cache_specs(step.cfg, 2, shape.seq_len)
+    gen = torch.Generator("cpu").manual_seed(9)
+    caches = dryrun._random_caches(specs, gen, "cpu")
+    params = tfm.init_params(0, cfg, device="cpu")
+    token = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+    want, _ = step(params, token, caches, shape.seq_len - 1)
+    got, _ = step(tree_map(lambda a: a.to(DEVICE), params),
+                  token.to(DEVICE), tree_map(lambda a: a.to(DEVICE), caches),
+                  shape.seq_len - 1)
+    err = float((got.cpu() - want).abs().max())
+    line = {"phase": "launch", "check": "windowed_decode_reduced",
+            "arch": "phi4-mini-3.8b", "window_override": 32,
+            "position": shape.seq_len - 1,
+            "ring_slots": int(specs["b0"]["mixer"]["k"].shape[2]),
+            "logits_abs_err": err, "tol": MIXER_REF_TOL}
+    emit(line)
+    if not err <= MIXER_REF_TOL:
+        raise AssertionError(f"the windowed decode past its window: {line}")
+    return line
+
+
+def launch_phase(fa) -> dict:
+    """The one-card dry run's rows (`repro_torch.launch`): the plan of all
+    40 rows; qwen2.5-3b × prefill_32k at whole depth through kernel 4b at
+    32,768 rows (and the kernel against its chunked plain version there);
+    gemma2-9b × decode_32k at whole depth with its gate; the long_500k
+    rows (phi4-mini windowed, Jamba and Gemma-2 native) with their
+    references.  Returns the bf16 kernel's launches in the prefill row."""
+    t0 = time.perf_counter()
+    launch_plan_phase()
+    kernel = launch_kernel_32k(fa)
+    prefill = launch_run(fa, "qwen2.5-3b", "prefill_32k",
+                         max_batch=LAUNCH_PREFILL_BATCH)
+    if prefill["launches"] != {"f32": 0, "bf16": 36 * 3}:
+        raise AssertionError(f"qwen2.5-3b × prefill_32k launched "
+                             f"{prefill['launches']}, not 36 bf16 launches "
+                             f"a prefill in 3 prefills")
+    gemma = gemma_decode_32k(fa)
+    long_rows = [launch_run(fa, arch, "long_500k", reps=2)
+                 for arch in ("phi4-mini-3.8b", "jamba-v0.1-52b",
+                              "gemma2-9b")]
+    decode_attention_524k()
+    windowed_decode_reference()
+    emit({"phase": "launch", "seconds": time.perf_counter() - t0})
+    return {"kernel": kernel, "prefill_launches": prefill["launches"]["bf16"],
+            "gate_launches": gemma["gate"]["launches_bf16"],
+            "long": long_rows}
+
+
+def literal_weight_phase(kmod) -> dict:
+    """One CWFL round in the literal-weight modes (``normalize=False``,
+    ``precode=False``) at the paper's MNIST width through kernel 1, on the
+    card against the CPU from the same state, params and unit normals:
+    the FL tolerance (1e-4) relative to each output's scale."""
+    from repro_torch.core import cwfl
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    init, apply, loss, topo, xs, ys, xte, yte = full_width_workload()
+    K = int(xs.shape[0])
+    state = cwfl.setup(topo, cwfl.CWFLConfig(num_clusters=3, snr_db=40.0),
+                       0)
+    g = torch.Generator(DEVICE).manual_seed(11)
+    params = init(torch.Generator(DEVICE).manual_seed(0))
+    stacked = tree_map(lambda v: torch.stack([v + 0.01 * torch.randn(
+        v.shape, generator=g, device=DEVICE) for _ in range(K)]), params)
+    d = sum(x[0].numel() for x in tree_leaves(stacked))
+    noise = tuple(torch.randn(3, d, generator=g, device=DEVICE)
+                  for _ in range(2))
+    out = []
+    for normalize, precode in ((False, True), (True, False),
+                               (False, False)):
+        kmod.launches = 0
+        new, cons = cwfl.aggregate(stacked, state, noise,
+                                   normalize=normalize, precode=precode)
+        launches = kmod.launches
+        cpu = state_to(state, "cpu")
+        want_new, want_cons = cwfl.aggregate(
+            tree_map(lambda v: v.cpu(), stacked), cpu,
+            tuple(x.cpu() for x in noise), normalize=normalize,
+            precode=precode)
+        err = max(rel_err(a.cpu(), b) for a, b in zip(
+            tree_leaves(new) + tree_leaves(cons),
+            tree_leaves(want_new) + tree_leaves(want_cons)))
+        line = {"phase": "literal_weights", "K": K, "C": 3, "d": d,
+                "normalize": normalize, "precode": precode,
+                "launches": launches, "rel_err": err, "tol": 1e-4}
+        emit(line)
+        out.append(line)
+        if not (launches == 1 and err <= 1e-4):
+            raise AssertionError(f"a literal-weight round on the card: "
+                                 f"{line}")
+    return {"launches": sum(x["launches"] for x in out)}
 
 
 def main() -> None:
@@ -4792,10 +5146,7 @@ def main() -> None:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    # The serial cold build times the FL and serving kernels' sources, the
-    # set earlier runs timed, so that its number stays comparable.
-    serial = [kmod.SOURCE, omod.SOURCE, *fa.SOURCES]
-    sources = [*serial, fa.SOURCE_BWD]
+    sources = [kmod.SOURCE, omod.SOURCE, *fa.SOURCES, fa.SOURCE_BWD]
     cold = not any(library_path(src).exists() for src in sources)
     t0 = time.perf_counter()
     build(sources)
@@ -4822,10 +5173,7 @@ def main() -> None:
           "kernels": ["cwfl_round", "cwfl_round_guard", "ota_aggregate",
                       "flash_attention", "flash_attention_bf16",
                       "flash_attention_bwd", "flash_attention_bwd_bf16"],
-          "seconds": seconds, "cold": cold,
-          "serial_cold_seconds": serial_build_seconds(serial),
-          "serial_cold_sources": [src.name for src in serial],
-          "libraries": libraries})
+          "seconds": seconds, "cold": cold, "libraries": libraries})
 
     cwfl_row, cwfl_cifar_row, cwfl_c4_row = kernel_phase(kmod,
                                                          cwfl_round_ref)
@@ -4907,6 +5255,16 @@ def main() -> None:
     bwd_bf16_row["launches_train_mixers"] = {
         name: n["bwd_bf16"] for name, n in trained.items() if n["bwd_bf16"]}
     fa_row["launches_serve_twin"] = serve_twin_phase(fa)["f32"]
+    cwfl_row["launches_literal"] = literal_weight_phase(kmod)["launches"]
+    launch = launch_phase(fa)
+    fa_bf16_row["launches_launch"] = {
+        "qwen2.5-3b prefill_32k": launch["prefill_launches"],
+        "gemma2-9b decode_32k gate": launch["gate_launches"]}
+    fa_bf16_row["geometry_32k"] = {
+        k: launch["kernel"][k] for k in ("geometry", "ms", "sdpa_ms",
+                                         "bound_ms", "max_abs_err",
+                                         "rel_l2_blocks",
+                                         "wrong_kernel_rel_l2")}
 
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -12,6 +12,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.xla_math import _fma_f32, db10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,22 +82,6 @@ def _sum_in_xla_order(x: torch.Tensor) -> torch.Tensor:
     return _sum_in_xla_order(torch.stack(sums, dim=-1))
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor) -> torch.Tensor:
-    """fma(a, b, c) of f32 tensors, rounded once to f32: a·b is exact in
-    f64, the f64 sum's error is recovered with a two-sum and folded in by
-    rounding to odd, so the last rounding, to f32, is the only one."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    odd = (s.view(torch.int64) & 1) == 1
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
-    s = torch.where((err != 0) & ~odd, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
 def _sum_sq_in_xla_order(diff: torch.Tensor, jitted: bool) -> torch.Tensor:
     """Σ diff² over the last axis, f32, as XLA's CPU backend takes the
     election's ``jnp.sum(diff ** 2, axis=-1)``.  Eagerly the squares are
@@ -115,9 +100,12 @@ def _sum_sq_in_xla_order(diff: torch.Tensor, jitted: bool) -> torch.Tensor:
 
 
 def snr_features(link_snr: torch.Tensor, adjacency: torch.Tensor,
-                 floor_db: float = -30.0) -> torch.Tensor:
-    """Per-client SNR profile features (dB, outage links floored)."""
-    snr_db = 10.0 * torch.log10(torch.clamp(link_snr, min=1e-12))
+                 floor_db: float = -30.0, db_mode: str = "eager"
+                 ) -> torch.Tensor:
+    """Per-client SNR profile features (dB, outage links floored), the dB
+    taken as XLA takes it in JAX's context ``db_mode`` (`xla_math.db10`:
+    ``"eager"``, ``"jit"`` or ``"folded"``)."""
+    snr_db = db10(link_snr, db_mode)
     snr_db = torch.where(adjacency, snr_db, floor_db)
     return torch.clamp(snr_db, min=floor_db)
 
@@ -125,11 +113,17 @@ def snr_features(link_snr: torch.Tensor, adjacency: torch.Tensor,
 def make_cluster_plan(link_snr: torch.Tensor, adjacency: torch.Tensor,
                       num_clusters: int, first,
                       kmeans_iters: int = 50,
-                      jitted: bool = False) -> ClusterPlan:
+                      jitted: bool = False,
+                      db_mode: str | None = None) -> ClusterPlan:
     """Full offline clustering: K-means on SNR features → heads → ξ_c.
     ``jitted``: elect the heads as JAX does under ``jit`` (its engine's
-    re-clustering inside a run), else as its eager offline phase does."""
-    return _plan_from_features(snr_features(link_snr, adjacency), link_snr,
+    re-clustering inside a run), else as its eager offline phase does.
+    ``db_mode``: the context of the features' dB (`snr_features`); by
+    default the election's, ``"jit"`` or ``"eager"``."""
+    if db_mode is None:
+        db_mode = "jit" if jitted else "eager"
+    return _plan_from_features(snr_features(link_snr, adjacency,
+                                            db_mode=db_mode), link_snr,
                                num_clusters, first, kmeans_iters, jitted)
 
 
@@ -150,8 +144,9 @@ def _plan_from_features(feats: torch.Tensor, link_snr: torch.Tensor,
     # eager heads in all 207 plans of a sweep at K = 8, 16, 50 and all
     # 1,050 of one at K = 65, 80, 100, 127, 200 (C = 2, 3, 5), and its
     # jitted heads in the sweep of `tests/test_torch_election.py`.  The
-    # port's own features round log10 otherwise than XLA and agree in
-    # fewer.
+    # port's own features of the same link SNRs are XLA's bits
+    # (`xla_math.db10`) and elect the same heads there; the port's own
+    # channel view is within a few ulp of JAX's, not bitwise (ROADMAP §3).
     diff = feats[:, None, :] - centroids[None]
     d2 = _sum_sq_in_xla_order(diff, jitted)
     d2_masked = torch.where(assign[:, None] == clusters[None], d2,

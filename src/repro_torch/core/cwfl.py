@@ -12,7 +12,10 @@ once into a ``(K, d)`` f32 matrix and sent through the fused round
 Each phase's weights are renormalized into a convex combination (the
 literal equations have total weight > 1 and diverge when iterated), and
 the phase-1 amplitudes carry eq. (5)'s norm-limiting precoding: the JAX
-package's defaults, the only mode the port runs.  A scenario's
+package's defaults.  ``normalize=False`` gives the literal eq. (8)/(9)
+weights and ``precode=False`` drops the precoding, as JAX's
+`round_coefficients` does; both go through the same kernel, only Ã, B̃
+and κ change.  A scenario's
 participation mask and a fault scenario's node-up vector fold into the
 round coefficients (`round_coefficients`), and a fault round runs the
 kernel's guarded variant.  A Monte-Carlo sweep's trajectories run their
@@ -150,11 +153,12 @@ def phase1_weights(state: CWFLState) -> torch.Tensor:
     return state.plan.membership * w_k[None, :]
 
 
-def phase2_weights(state: CWFLState,
+def phase2_weights(state: CWFLState, normalize: bool = True,
                    live: Optional[torch.Tensor] = None):
     """(C, C) inter-head mix B = W + I and (C,) equivalent per-receiver
     noise std κ_c = sqrt(Σ_j W(c,j)²)·σ̃ (eq. 9 / lemma 2), both divided by
-    the row sums of B.
+    the row sums of B with ``normalize`` (the literal eq. 9 weights
+    without).
 
     ``live``: optional (C,) bool cluster liveness (fault scenarios).  A
     dead cluster transmits nothing in phase 2, so its B column is zeroed
@@ -170,6 +174,8 @@ def phase2_weights(state: CWFLState,
         b = b * lv[None, :]
         mix = mix * lv[None, :]
     kappa = torch.sqrt(torch.sum(mix ** 2, dim=1)) * eff_std2
+    if not normalize:
+        return b, kappa
     row_sums = b.sum(dim=1, keepdim=True)
     if live is not None:
         row_sums = torch.clamp(row_sums, min=1e-12)
@@ -200,7 +206,8 @@ def participation_weights(state: CWFLState, mask: Optional[torch.Tensor],
 def round_coefficients(state: CWFLState, stacked_params=None,
                        mask: Optional[torch.Tensor] = None,
                        alive: Optional[torch.Tensor] = None,
-                       mean_sq: Optional[torch.Tensor] = None):
+                       mean_sq: Optional[torch.Tensor] = None, *,
+                       normalize: bool = True, precode: bool = True):
     """The weight set of one sync round: ``(Ã, eff_std1, B̃, κ, M)`` — the
     precoded, renormalized phase-1 amplitudes with their receiver noise
     std, the consensus mix with its equivalent noise std, and the phase-3
@@ -217,33 +224,40 @@ def round_coefficients(state: CWFLState, stacked_params=None,
     ``alive``: optional (K,) {0,1} node-up vector (fault scenarios).  A
     cluster with no present transmit mass is dead: its Ã row and its
     phase-1 noise std are zeroed, and its column leaves B̃
-    (`phase2_weights`)."""
+    (`phase2_weights`).
+    ``normalize``: divide each phase's weights and noise by their row
+    sums (the convex-combination mode); without, the literal eq. (8)/(9)
+    weights.  ``precode``: apply eq. (5)'s clip, which needs the signals'
+    power; without, neither ``stacked_params`` nor ``mean_sq`` is read."""
     A = phase1_weights(state)
     part = participation_weights(state, mask, alive=alive)
     if part is not None:
         A = A * part[None, :]
-    if mean_sq is None:
-        if stacked_params is None:
-            raise ValueError("round_coefficients needs stacked_params or "
-                             "mean_sq: the eq. (5) amplitude clip is "
-                             "estimated from the transmitted signals' power")
-        mean_sq = per_client_mean_sq(stacked_params)
-    A = A * precode_scale(state, mean_sq)[None, :]
+    if precode:
+        if mean_sq is None:
+            if stacked_params is None:
+                raise ValueError(
+                    "precode=True needs stacked_params or mean_sq: the eq. "
+                    "(5) amplitude clip is estimated from the transmitted "
+                    "signals' power")
+            mean_sq = per_client_mean_sq(stacked_params)
+        A = A * precode_scale(state, mean_sq)[None, :]
 
-    # Receiver scaling (eq. 8): AWGN std σ_c/sqrt(P); weights and noise are
-    # both divided by the phase-1 row sums.
+    # Receiver scaling (eq. 8): AWGN std σ_c/sqrt(P); with normalization
+    # weights and noise are both divided by the phase-1 row sums.
     eff_std1 = state.head_noise_std / _sqrt32(state.total_power, A.device)
     raw = A.sum(dim=1, keepdim=True)
-    rows = torch.clamp(raw, min=1e-12)
-    A = A / rows
-    eff_std1 = eff_std1 / rows[:, 0]
+    if normalize:
+        rows = torch.clamp(raw, min=1e-12)
+        A = A / rows
+        eff_std1 = eff_std1 / rows[:, 0]
     if alive is None:
-        B, kappa = phase2_weights(state)
+        B, kappa = phase2_weights(state, normalize)
         return A, eff_std1, B, kappa, state.plan.membership.T
     dead = raw[:, 0] <= 0.0
     A = torch.where(dead[:, None], 0.0, A)
     eff_std1 = torch.where(dead, 0.0, eff_std1)
-    B, kappa = phase2_weights(state, live=~dead)
+    B, kappa = phase2_weights(state, normalize, live=~dead)
     return A, eff_std1, B, kappa, state.plan.membership.T
 
 
@@ -270,12 +284,14 @@ def _flat_unpack(new_flat: torch.Tensor, cons_flat: torch.Tensor,
 
 
 def _aggregate_flat(stacked_params, state: CWFLState, noise,
-                    mask=None, alive=None):
+                    mask=None, alive=None, normalize: bool = True,
+                    precode: bool = True):
     """One (K, d) matrix through the fused round kernel."""
     leaves, treedef = tree_flatten(stacked_params)
     K = leaves[0].shape[0]
     A, eff_std1, B, kappa, m_back = round_coefficients(
-        state, stacked_params, mask=mask, alive=alive)
+        state, stacked_params, mask=mask, alive=alive, normalize=normalize,
+        precode=precode)
     unit1, unit2 = noise
     flat = _flat_pack(leaves, K)
     new_flat, cons_flat = cwfl_round(flat, A, eff_std1[:, None] * unit1, B,
@@ -286,7 +302,8 @@ def _aggregate_flat(stacked_params, state: CWFLState, noise,
 
 def aggregate(stacked_params, state: CWFLState, noise,
               mask: Optional[torch.Tensor] = None,
-              alive: Optional[torch.Tensor] = None):
+              alive: Optional[torch.Tensor] = None, *,
+              normalize: bool = True, precode: bool = True):
     """One CWFL sync round.  Returns ``(new_stacked_params, consensus)``.
 
     ``stacked_params``: parameter tree, every leaf (K, ...) f32.
@@ -298,12 +315,15 @@ def aggregate(stacked_params, state: CWFLState, noise,
       kernel's guarded variant: non-finite signals count as 0, so a
       quarantined client's poisoned update cannot reach the MAC sum, and
       dead Ã rows are zeroed with their noise.
+    ``normalize``, ``precode``: the convex-combination mode and eq. (5)'s
+      precoding, JAX's defaults; False gives the literal eq. (8)/(9)
+      weights, unprecoded (`round_coefficients`).
     """
     for x in tree_flatten(stacked_params)[0]:
         if x.dtype != torch.float32:
             raise TypeError(f"the flat round takes f32 leaves, got {x.dtype}")
     return _aggregate_flat(stacked_params, state, noise, mask=mask,
-                           alive=alive)
+                           alive=alive, normalize=normalize, precode=precode)
 
 
 def stack_states(states: Sequence):

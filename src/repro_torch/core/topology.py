@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.xla_math import db10
 from repro_torch.utils.device import resolve_device
 
 
@@ -72,15 +73,20 @@ def pow_f32(x: torch.Tensor, exponent) -> torch.Tensor:
     return (x.to(torch.float64) ** exponent).to(torch.float32)
 
 
-def link_stats(link_gain: torch.Tensor, cfg: TopologyConfig):
+def link_stats(link_gain: torch.Tensor, cfg: TopologyConfig,
+               db_mode: Optional[str] = "eager"):
     """(link_snr, adjacency) from a (K, K) complex gain matrix: SNR at the
-    equal-split reference power P/K and the dB-threshold outage pruning."""
+    equal-split reference power P/K and the dB-threshold outage pruning,
+    the dB taken as XLA takes it in JAX's context ``db_mode``
+    (`xla_math.db10`; eagerly for a drawn topology), or by torch's own
+    ``log10`` where ``db_mode`` is None (a round's channel view)."""
     K = link_gain.shape[0]
     eye = torch.eye(K, device=link_gain.device)
     p_ref = cfg.total_power / K
     link_snr = (torch.abs(link_gain) ** 2) * p_ref / cfg.noise_var
     link_snr = link_snr * (1.0 - eye)
-    snr_db = 10.0 * torch.log10(torch.clamp(link_snr, min=1e-12))
+    snr_db = (10.0 * torch.log10(torch.clamp(link_snr, min=1e-12))
+              if db_mode is None else db10(link_snr, db_mode))
     adjacency = (snr_db >= cfg.outage_snr_db) & ~eye.bool()
     return link_snr, adjacency
 

@@ -10,7 +10,8 @@
   round through ``cwfl_round``; the tree collectives.
 
 JAX's ``sharding_rules`` (PartitionSpec inference over a device mesh) has
-no counterpart on one card; ROADMAP §1 item 8 lists it with ``launch/``.
+no counterpart on one card; ROADMAP §1 item 8.4 lists it (``launch/``,
+its one-card counterpart, is `repro_torch.launch`).
 """
 from repro_torch.dist import fl_integration, ota_collectives  # noqa: F401
 from repro_torch.dist.fl_integration import (FLPlan,  # noqa: F401

@@ -31,15 +31,6 @@ from repro_torch.utils.pytree import (tree_flatten_vector, tree_map,
                                       tree_unflatten_vector)
 
 
-def _defaults_only(normalize: bool, precode: bool) -> None:
-    """The port always normalizes and precodes (ROADMAP §1 item 8 lists the
-    literal-weight modes)."""
-    if not (normalize and precode):
-        raise NotImplementedError(
-            "normalize=False / precode=False (the literal eq. 8/9 weights) "
-            "are not ported; the port always normalizes and precodes")
-
-
 def phase1_ota_flat(signals: torch.Tensor, state: CWFLState,
                     noise: torch.Tensor, *, normalize: bool = True,
                     precode: bool = True) -> torch.Tensor:
@@ -47,10 +38,11 @@ def phase1_ota_flat(signals: torch.Tensor, state: CWFLState,
 
     ``noise``: (C, d) f32 unit normals, scaled by the round's effective
     phase-1 receiver stds.  Matches the first phase of
-    `repro_torch.core.cwfl.aggregate` on the flattened tree."""
-    _defaults_only(normalize, precode)
+    `repro_torch.core.cwfl.aggregate` on the flattened tree;
+    ``normalize``/``precode`` as there."""
     sig32 = signals.to(torch.float32)
-    a, eff_std, _, _, _ = cwfl.round_coefficients(state, sig32)
+    a, eff_std, _, _, _ = cwfl.round_coefficients(
+        state, sig32, normalize=normalize, precode=precode)
     return ota_aggregate(sig32, a, eff_std[:, None] * noise)
 
 
@@ -61,10 +53,11 @@ def cwfl_aggregate_flat(signals: torch.Tensor, state: CWFLState, noise, *,
     ``noise``: ``(unit1, unit2)``, two (C, d) f32 unit-normal matrices for
     phase 1 and phase 2.  Returns ``(new_signals (K, d) in the signals'
     dtype, consensus (d,) f32)`` — the flat twin of
-    `repro_torch.core.cwfl.aggregate`, equal to it on the same normals."""
-    _defaults_only(normalize, precode)
+    `repro_torch.core.cwfl.aggregate`, equal to it on the same normals
+    (``normalize``/``precode`` as there)."""
     sig32 = signals.to(torch.float32)
-    a, eff_std, b, kappa, m_back = cwfl.round_coefficients(state, sig32)
+    a, eff_std, b, kappa, m_back = cwfl.round_coefficients(
+        state, sig32, normalize=normalize, precode=precode)
     unit1, unit2 = noise
     new32, consensus = cwfl_round(sig32, a, eff_std[:, None] * unit1, b,
                                   kappa[:, None] * unit2, m_back)

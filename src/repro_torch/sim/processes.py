@@ -150,7 +150,12 @@ def channel_view(state: ChannelState, tcfg: TopologyConfig) -> ChannelView:
     amp = pathloss_amplitude(state.positions, tcfg) * pow_f32(
         torch.full((), 10.0, device=off.device), state.shadow_db / 20.0)
     link_gain = amp * state.h_tilde * off
-    link_snr, adjacency = link_stats(link_gain, tcfg)
+    # The outage threshold in torch's own log10: XLA's (`xla_math.db10`)
+    # costs about 1 ms a round of the cluster-churn scan at K = 50 on an
+    # NVIDIA H100 80GB HBM3 (700 W), and buys no bits while this view's
+    # link SNRs are a few ulp from JAX's (its pathloss `pow`, `sqrt` and
+    # |h|² are not XLA's).
+    link_snr, adjacency = link_stats(link_gain, tcfg, db_mode=None)
     return ChannelView(link_gain=link_gain, link_snr=link_snr,
                        adjacency=adjacency)
 

@@ -54,14 +54,16 @@ class CWFLStrategy(Strategy):
         # A seed draws K-means' first centre once; its trajectories share
         # the plan and differ in their noise budget (`cwfl.setup`'s rule).
         # JAX traces a sweep's setup, so the heads are elected in XLA's
-        # jitted order (a lone run's setup is eager: `init`).
+        # jitted order (a lone run's setup is eager: `init`); the
+        # topology is a constant of JAX's trace, so XLA folds the features
+        # at compile time.
         plans, states = {}, []
         for i, snr in trajectories:
             if i not in plans:
                 plans[i] = cl.make_cluster_plan(
                     topology.link_snr, topology.adjacency, cfg.num_clusters,
                     draws[i].kmeans_first(topology.num_clients),
-                    jitted=True)
+                    jitted=True, db_mode="folded")
             noise_var = (topology.noise_var if snr is None else
                          ch.snr_db_to_noise_var(topology.total_power, snr))
             states.append(cwfl.state_from_plan(

@@ -3,16 +3,63 @@
 
 One round = E local epochs at every client in parallel, then one
 synchronization under the selected aggregation strategy; the round loop
-lives in `repro_torch.sim.engine`.
+lives in `repro_torch.sim.engine`.  ``STRATEGIES`` is JAX's deprecated
+read-only ``name -> (setup, aggregate)`` view of the strategy registry.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from collections.abc import Mapping
 from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core.topology import Topology
+from repro_torch.strategies import available_strategies, get_strategy
+
+
+class _DeprecatedStrategies(Mapping):
+    """Read-only ``name -> (setup, aggregate)`` view of the strategy
+    registry, as JAX keeps it for pre-Strategy-API callers.  Every access
+    (not the import) warns: new code resolves
+    `repro_torch.strategies.get_strategy` and calls the `Strategy`.  The
+    pair takes what the port's strategies take: ``setup(topology, draws,
+    *, num_clusters=3, snr_db=None)`` with the setup's draws
+    (`repro_torch.sim.draws`) where JAX takes a key, and
+    ``aggregate(params, state, noise)`` with the round's unit normals."""
+
+    @staticmethod
+    def _warn():
+        warnings.warn(
+            "repro_torch.training.STRATEGIES is deprecated; use "
+            "repro_torch.strategies.get_strategy(name) and the Strategy "
+            "object (init/aggregate) instead", DeprecationWarning,
+            stacklevel=3)
+
+    def __getitem__(self, name):
+        self._warn()
+        strategy = get_strategy(name)
+
+        def setup(topology, draws, *, num_clusters=3, snr_db=None, **_):
+            cfg = FLConfig(strategy=strategy.name, num_clusters=num_clusters)
+            return strategy.init(topology, draws, cfg, snr_db=snr_db)
+
+        def aggregate(params, state, noise):
+            return strategy.aggregate(params, state, noise)
+
+        return setup, aggregate
+
+    def __iter__(self):
+        self._warn()
+        return iter(available_strategies())
+
+    def __len__(self):
+        self._warn()
+        return len(available_strategies())
+
+
+STRATEGIES = _DeprecatedStrategies()
 
 
 @dataclasses.dataclass(frozen=True)

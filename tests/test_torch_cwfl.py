@@ -111,6 +111,53 @@ def test_aggregate_matches_jax(states, scale, seed):
                                    rtol=0)
 
 
+LITERAL = [(False, True), (True, False), (False, False)]
+LITERAL_IDS = ["unnormalized", "unprecoded", "literal"]
+
+
+@pytest.mark.parametrize("normalize,precode", LITERAL, ids=LITERAL_IDS)
+@pytest.mark.parametrize("scale", [0.1, 3.0], ids=["unclipped", "clipped"])
+def test_round_coefficients_literal_weights_match_jax(states, scale,
+                                                      normalize, precode):
+    """The literal eq. (8)/(9) weights (``normalize=False``) and the
+    unprecoded ones (``precode=False``): JAX's five coefficients."""
+    jstate, tstate = states
+    stacked = _stacked(scale)
+    ref = jcwfl.round_coefficients(jstate, jax.tree.map(jnp.asarray, stacked),
+                                   normalize, precode)
+    got = tcwfl.round_coefficients(
+        tstate, params_from_jax(stacked, device="cpu"), normalize=normalize,
+        precode=precode)
+    for name, a, b in zip(("A", "eff_std1", "B", "kappa", "M"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+    for a, b in zip(tcwfl.phase2_weights(tstate, normalize),
+                    jcwfl.phase2_weights(jstate, normalize)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+
+@pytest.mark.parametrize("normalize,precode", LITERAL, ids=LITERAL_IDS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_aggregate_literal_weights_match_jax(states, seed, normalize,
+                                             precode):
+    """A round in each literal-weight mode on JAX's injected noise, within
+    1e-5 of JAX's (relative where the literal weights, whose rows sum
+    past 1, scale the parameters up), through the same round kernel."""
+    jstate, tstate = states
+    stacked = _stacked(3.0, seed)
+    key = jax.random.PRNGKey(200 + seed)
+    ref_new, ref_cons = jcwfl.aggregate(jax.tree.map(jnp.asarray, stacked),
+                                        jstate, key, normalize=normalize,
+                                        precode=precode)
+    new, cons = tcwfl.aggregate(params_from_jax(stacked, device="cpu"),
+                                tstate, _unit_noise(key, stacked),
+                                normalize=normalize, precode=precode)
+    for a, b in zip(tree_leaves(new) + tree_leaves(cons),
+                    jax.tree.leaves(ref_new) + jax.tree.leaves(ref_cons)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=ATOL)
+
+
 def test_aggregate_rejects_non_f32_leaves(states):
     _, tstate = states
     stacked = params_from_jax(_stacked(0.1), device="cpu")
@@ -247,4 +294,61 @@ def test_aggregate_masked_match_jax(states, case):
                     jax.tree.leaves(ref_new) + jax.tree.leaves(ref_cons)):
         assert np.all(np.isfinite(a.numpy()))
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=0)
+
+
+def test_deprecated_strategies_mapping_warns_and_agrees_with_jax(states):
+    """`repro_torch.training.STRATEGIES`, JAX's deprecated view: every
+    access warns, its names are JAX's, and the cwfl pair sets up JAX's
+    plan (given JAX's first K-means pick) and aggregates as the strategy
+    and as JAX's pair do on JAX's injected noise."""
+    from repro.training import STRATEGIES as JAX_STRATEGIES
+    from repro_torch.convert import topology_from_arrays
+    from repro_torch.core import TopologyConfig
+    from repro_torch.strategies import get_strategy
+    from repro_torch.training import STRATEGIES
+
+    jstate, tstate = states
+    with pytest.warns(DeprecationWarning, match="repro_torch.strategies"):
+        names = sorted(STRATEGIES)
+    with pytest.warns(DeprecationWarning):
+        assert names == sorted(JAX_STRATEGIES)
+    with pytest.warns(DeprecationWarning):
+        assert len(STRATEGIES) == len(names)
+    with pytest.warns(DeprecationWarning, match="deprecated"):
+        setup_fn, aggregate_fn = STRATEGIES["cwfl"]
+    with pytest.warns(DeprecationWarning):
+        jsetup, jaggregate = JAX_STRATEGIES["cwfl"]
+
+    topo = jtopo.make_topology(jax.random.PRNGKey(7),
+                               jtopo.TopologyConfig(num_clients=K))
+    ref_state = jsetup(topo, jax.random.PRNGKey(3), num_clusters=C,
+                       snr_db=40.0)
+    first = int(jax.random.randint(jax.random.PRNGKey(3), (), 0, K))
+
+    class Draws:
+        def kmeans_first(self, num_clients):
+            return torch.tensor(first)
+
+    ttop = topology_from_arrays(np.asarray(topo.positions),
+                                np.asarray(topo.link_gain),
+                                TopologyConfig(num_clients=K), device="cpu")
+    state = setup_fn(ttop, Draws(), num_clusters=C, snr_db=40.0)
+    np.testing.assert_array_equal(state.plan.heads.numpy(),
+                                  np.asarray(ref_state.plan.heads))
+
+    stacked = _stacked(0.1)
+    key = jax.random.PRNGKey(5)
+    noise = _unit_noise(key, stacked)
+    new, cons = aggregate_fn(params_from_jax(stacked, device="cpu"), tstate,
+                             noise)
+    again = get_strategy("cwfl").aggregate(
+        params_from_jax(stacked, device="cpu"), tstate, noise)
+    ref_new, ref_cons = jaggregate(jax.tree.map(jnp.asarray, stacked),
+                                   jstate, key)
+    for a, b, c in zip(tree_leaves(new) + tree_leaves(cons),
+                       tree_leaves(again[0]) + tree_leaves(again[1]),
+                       jax.tree.leaves(ref_new) + jax.tree.leaves(ref_cons)):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), atol=ATOL,
                                    rtol=0)

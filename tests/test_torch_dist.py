@@ -164,14 +164,46 @@ def test_cwfl_aggregate_flat_matches_jax(state12, noisy):
                                atol=ATOL)
 
 
-def test_flat_routes_refuse_literal_weights(state12):
-    _, tstate = state12
-    s = torch.zeros(12, 8)
-    with pytest.raises(NotImplementedError, match="normalize"):
-        toc.phase1_ota_flat(s, tstate, torch.zeros(3, 8), normalize=False)
-    with pytest.raises(NotImplementedError, match="precode"):
-        toc.cwfl_aggregate_flat(s, tstate, (torch.zeros(3, 8),) * 2,
-                                precode=False)
+@pytest.mark.parametrize("normalize,precode",
+                         [(False, True), (True, False), (False, False)],
+                         ids=["unnormalized", "unprecoded", "literal"])
+def test_flat_routes_take_literal_weights(state12, normalize, precode):
+    """``normalize=False`` / ``precode=False`` (the literal eq. 8/9
+    weights) on both flat routes, JAX's normals injected: within 1e-5 of
+    JAX's (relative too, the literal rows summing past 1), phase 1
+    through the `ota_aggregate` route and the round through `cwfl_round`,
+    equal to the port's tree route."""
+    jstate, tstate = state12
+    K, C = jstate.num_clients, jstate.num_clusters
+    rng = np.random.default_rng(8)
+    s = (3.0 * rng.standard_normal((K, 1000))).astype(np.float32)
+    key = jax.random.PRNGKey(9)
+    unit = torch.from_numpy(np.array(jax.random.normal(key, (C, 1000),
+                                                       jnp.float32)))
+    got = toc.phase1_ota_flat(torch.from_numpy(s), tstate, unit,
+                              normalize=normalize, precode=precode)
+    ref = joc.phase1_ota_flat(jnp.asarray(s), jstate, key,
+                              normalize=normalize, precode=precode,
+                              use_pallas=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=ATOL)
+    noise = _normals(key, (C, 1000), (C, 1000))
+    new, cons = toc.cwfl_aggregate_flat(torch.from_numpy(s), tstate, noise,
+                                        normalize=normalize, precode=precode)
+    ref_new, ref_cons = joc.cwfl_aggregate_flat(
+        jnp.asarray(s), jstate, key, normalize=normalize, precode=precode,
+        use_pallas=False)
+    np.testing.assert_allclose(new.numpy(), np.asarray(ref_new), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_allclose(cons.numpy(), np.asarray(ref_cons),
+                               atol=ATOL, rtol=ATOL)
+    tree_new, tree_cons = tcwfl.aggregate(
+        {"flat": torch.from_numpy(s)}, tstate, noise, normalize=normalize,
+        precode=precode)
+    np.testing.assert_allclose(new.numpy(), tree_new["flat"].numpy(),
+                               atol=ATOL)
+    np.testing.assert_allclose(cons.numpy(), tree_cons["flat"].numpy(),
+                               atol=ATOL)
 
 
 def test_round_coefficients_take_gathered_powers(state12):

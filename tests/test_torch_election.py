@@ -5,7 +5,8 @@ jitted round (`repro.sim.engine`, loop and scan alike).  Under ``jit``
 XLA's CPU backend fuses the election's ``jnp.sum(diff ** 2, -1)`` into one
 loop that contracts each step into an FMA (rows of at most 32 terms), and
 it rewrites ``10·log10`` of the features as ``log · 4.3429451``; eagerly it
-rounds each square first.  A two-member cluster puts both members at the
+rounds each square first.  The port takes the features' dB with XLA's own
+``log`` in each context (`repro_torch.core.xla_math`).  A two-member cluster puts both members at the
 same distance from its centroid in exact arithmetic, so these roundings
 pick its head.  The port elects in the eager order for a lone run's
 offline plan, and in the jitted order for a re-clustering inside a run
@@ -93,6 +94,8 @@ def test_roadmap_case_elects_as_jax_in_each_context():
                                          _t(snr), 3, first, 50, jitted=True)
     assert got_eager.heads.tolist() == [12, 3, 14]
     assert got_jitted.heads.tolist() == [12, 3, 11]
+    own_eager = tcl.make_cluster_plan(_t(snr), _t(adj), 3, first)
+    assert own_eager.heads.tolist() == [12, 3, 14]
     view = ChannelView(link_gain=None, link_snr=_t(snr), adjacency=_t(adj))
     in_run = get_strategy("cwfl").recluster(view, 3, torch.tensor(first))
     assert in_run.heads.tolist() == [12, 3, 11]
@@ -145,16 +148,41 @@ def test_sweep_setup_elects_as_jax_sweep(K):
             got = tcl._plan_from_features(feats, _t(snr), C, first, 50,
                                           jitted=True)
             np.testing.assert_array_equal(got.heads.numpy(), ref)
+            own = tcl.make_cluster_plan(_t(snr), _t(adj), C, first,
+                                        jitted=True, db_mode="folded")
+            np.testing.assert_array_equal(own.heads.numpy(), ref)
             eager = tcl._plan_from_features(feats, _t(snr), C, first, 50)
             parted += not torch.equal(eager.heads, got.heads)
     assert parted > 0
 
 
+@pytest.mark.parametrize("jitted", [False, True])
+@pytest.mark.parametrize("K", [8, 16, 50])
+def test_own_features_elect_as_jax(K, jitted):
+    """Ten topologies × C = 2, 3, 5 from the link SNRs alone: the port's
+    features are XLA's bits in each context (`xla_math.db10`), so its
+    plan has JAX's assignment and heads in all 30, eagerly and under
+    ``jit``."""
+    for seed in range(10):
+        snr, adj, key, first = _world(K, seed)
+        for C in (2, 3, 5):
+            ref = (_jax_plan(snr, adj, C, key) if jitted
+                   else jcl.make_cluster_plan(snr, adj, C, key))
+            got = tcl.make_cluster_plan(_t(snr), _t(adj), C, first,
+                                        jitted=jitted)
+            np.testing.assert_array_equal(got.assignment.numpy(),
+                                          np.asarray(ref.assignment))
+            np.testing.assert_array_equal(got.heads.numpy(),
+                                          np.asarray(ref.heads))
+
+
 def test_sweep_setup_elects_in_the_jitted_order():
     """`CWFLStrategy.init_batch` (the port's sweep setup) elects the ROADMAP
-    case's head as JAX's jitted election does, 11; the lone run's setup
-    (`init`) as JAX's eager one, 14 (on JAX's link SNRs: the port's own
-    round otherwise, ROADMAP §3)."""
+    case's heads as JAX's sweep does, from folded features in the jitted
+    order; the lone run's setup (`init`) as JAX's eager plan does.  On
+    JAX's link SNRs both elect 14 here; the jitted order on unfolded
+    features (an in-run re-clustering) elects 11
+    (`test_roadmap_case_elects_as_jax_in_each_context`)."""
     from repro_torch.convert import topology_from_arrays
     from repro_torch.core import TopologyConfig
     from repro_torch.strategies import get_strategy
@@ -178,8 +206,13 @@ def test_sweep_setup_elects_in_the_jitted_order():
     strategy = get_strategy("cwfl")
     lone = strategy.init(top, Draws(), Cfg())
     batch = strategy.init_batch(top, [Draws()], Cfg(), [(0, None)])
-    assert lone.plan.heads.tolist() == [12, 3, 14]
-    assert batch.plan.heads[0].tolist() == [12, 3, 11]
+    sweep = jax.jit(jax.vmap(
+        lambda k: jcl.make_cluster_plan(snr, adj, 3, k).heads))
+    eager = jcl.make_cluster_plan(snr, adj, 3, key)
+    assert lone.plan.heads.tolist() == np.asarray(eager.heads).tolist() \
+        == [12, 3, 14]
+    assert batch.plan.heads[0].tolist() == np.asarray(
+        sweep(key[None]))[0].tolist() == [12, 3, 14]
 
 
 def test_jitted_sum_order_matches_xla():

@@ -3,7 +3,7 @@
 ``paper_fig2_torch.py``, ``run_scenario_torch.py``,
 ``obs_report_torch.py``, ``train_lm_cwfl_torch.py`` and
 ``serve_decode_torch.py``, nor the chip phase scripts of the training
-slices, imports ``jax`` or the JAX package ``repro``."""
+and dry-run slices, imports ``jax`` or the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -23,7 +23,9 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "serve_decode_torch.py",
     ROOT / "scripts" / "lm_train_phase.py",
     ROOT / "scripts" / "mixers_phase.py",
-    ROOT / "scripts" / "train_phase.py"]
+    ROOT / "scripts" / "train_phase.py",
+    ROOT / "scripts" / "launch_phase.py",
+    ROOT / "scripts" / "churn_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -51,7 +53,10 @@ def test_the_checked_files_cover_every_slice():
             "obs/telemetry.py", "data/tokens.py",
             "training/dist_steps.py", "training/steps.py",
             "models/ssm.py", "models/moe.py", "models/xlstm.py",
-            "configs/phi4_mini_3_8b.py", "configs/llama3_405b.py"} <= checked
+            "configs/phi4_mini_3_8b.py", "configs/llama3_405b.py",
+            "core/xla_math.py", "launch/__init__.py", "launch/dryrun.py",
+            "launch/mesh.py", "launch/report.py",
+            "launch/roofline.py"} <= checked
     assert ROOT / "examples" / "train_lm_cwfl_torch.py" in FILES
     assert ROOT / "examples" / "serve_decode_torch.py" in FILES
 

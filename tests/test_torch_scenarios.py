@@ -380,9 +380,11 @@ def test_cluster_churn_tie_at_topology_19_still_parts_from_jax(workload,
                                                                jitted):
     """The fourth tie topology among seeds 0..24 at K = 8, seed 19: the
     port's cluster-churn run parts from JAX's trajectory whichever order
-    it elects in, because its features' bits are not XLA's (ROADMAP §3).
-    The divergence is held as it stands, so that it stays in view: a
-    change that closes it fails this test, and seed 19 then joins
+    it elects in.  Its features are XLA's bits of its link SNRs
+    (`xla_math.db10`), but its round-0 channel view is not JAX's: 26 of
+    its 64 link SNRs differ by up to 3 ulp (ROADMAP §3).  The divergence
+    is held as it stands, so that it stays in view: a change that closes
+    it fails this test, and seed 19 then joins
     `test_cluster_churn_head_tie_matches_jax`'s seeds."""
     from repro_torch.core import clustering as tcl
     from repro_torch.strategies import builtin
