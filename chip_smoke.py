@@ -199,7 +199,21 @@ Phases, each printed as one JSON object per line:
 13. serve_twin — ``examples/serve_decode_torch.py`` (the serving builders
    ``make_prefill_step`` and ``make_decode_step``) with a serving-time
    window, card against CPU, at the reduced Qwen2.5-3B and at phi4-mini's
-   published width.
+   published width;
+14. the channel process (after the batched kernels, the reference runs
+   and the dist phase; ``scripts/channel_phase.py`` runs them alone):
+   ``channel_kernel`` holds ``csrc/channel_view.cu`` bitwise against its
+   plain version (`xla_math`'s XLA arithmetic) on the card and on the CPU,
+   every output of a 10-round cluster-churn process at K = 50, one
+   trajectory and a stack of 8 (each element against its lone launch),
+   timed beside its bounds; ``tie`` replays JAX's draws at its topology
+   seed 19, K = 8 (``scripts/churn_tie_k8_seed19.json``) and the card and
+   the CPU elect JAX's heads in both election orders; ``churn`` counts one
+   launch a cluster-churn round and none in paper-static at K = 50 and
+   reads the scan's rounds/s; ``dtensor`` round-trips Qwen2.5-3B's
+   full-width leaves (one layer) through the sharding rules' placements
+   on a one-rank NCCL `DeviceMesh`.  The paper phase runs MNIST CWFL-4 at
+   the paper's 70 rounds.
 
 The reference phase runs its card and CPU runs in loop mode (its count
 of dead rows reads every sync on the host); the small CNN's reference
@@ -209,6 +223,7 @@ the ``{"kernels": [...]}`` summary and
 script exits non-zero; it needs a CUDA device and has no CPU path.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -1380,9 +1395,11 @@ def cnn_reference_phase(strategy: str, mu_prox: float = 0.0,
 # protocol at full width (`repro_torch.paper.common.run_setting` at
 # BenchScale.full(): CIFAR K=27, 50,000/10,000 cifar-like, 7 of 189 shards
 # a client, batch 32; MNIST K=50, 60,000/10,000, 4 of 200 shards, batch
-# 64; lr 1e-3, 40 dB, eval on 4,096), cut to PAPER_ROUNDS of the paper's
-# 70.  Per row: the summary row its kernel's launches count toward, and
-# the least round-3 test accuracy.  On a non-IID split that accuracy
+# 64; lr 1e-3, 40 dB, eval on 4,096), the CIFAR rows cut to PAPER_ROUNDS
+# of the paper's 70.  Per row: the summary row its kernel's launches count
+# toward, the least round-3 test accuracy (MNIST CWFL-4 is held to it at
+# round 70 too: no 70-round reference of the JAX package exists), and its
+# rounds.  On a non-IID split that accuracy
 # swings with the draws.  The JAX package (scripts/jax_paper_reference.py
 # --seed S): CWFL-3 0.931-1.0 and COTAF 0.989-1.0 at S = 0..5, their prox
 # twins 0.994-1.0 and 0.989-1.0 at S = 0..2, MNIST CWFL-4 0.504-0.792 at
@@ -1391,34 +1408,38 @@ def cnn_reference_phase(strategy: str, mu_prox: float = 0.0,
 # row within 0.001 of its twin.  A floor is the lowest of the row's and
 # its twin's runs in both packages less 0.03, rounded down to 0.01.
 PAPER_ROUNDS = 3
+# MNIST CWFL-4 runs the paper's whole 70 rounds (a few seconds); the CIFAR
+# rows stay at 3 for time.
+PAPER_FULL_ROUNDS = 70
 PAPER_RUNS = (
-    # label, dataset, strategy, clusters, µ_p, kernels-summary row, floor
+    # label, dataset, strategy, clusters, µ_p, kernels-summary row, floor,
+    # rounds
     ("cifar/COTAF", "cifar", "cotaf", 3, 0.0, "ota_aggregate[cifar C=1]",
-     0.90),
+     0.90, PAPER_ROUNDS),
     ("cifar/COTAF-Prox", "cifar", "cotaf", 3, 0.1,
-     "ota_aggregate[cifar C=1]", 0.90),
-    ("cifar/CWFL-3", "cifar", "cwfl", 3, 0.0, "cwfl_round[cifar]", 0.88),
+     "ota_aggregate[cifar C=1]", 0.90, PAPER_ROUNDS),
+    ("cifar/CWFL-3", "cifar", "cwfl", 3, 0.0, "cwfl_round[cifar]", 0.88,
+     PAPER_ROUNDS),
     ("cifar/CWFL-3-Prox", "cifar", "cwfl", 3, 0.1, "cwfl_round[cifar]",
-     0.88),
-    ("mnist/CWFL-4", "mnist", "cwfl", 4, 0.0, "cwfl_round[C=4]", 0.47),
+     0.88, PAPER_ROUNDS),
+    ("mnist/CWFL-4", "mnist", "cwfl", 4, 0.0, "cwfl_round[C=4]", 0.47,
+     PAPER_FULL_ROUNDS),
 )
 
 
 def paper_phase(omod, kmod) -> dict:
-    """Each row of PAPER_RUNS through ``run_setting`` on the card: steady
-    rounds/s (rounds 2-3), the kernels' launches counted from 0 for the
-    run (one ``cwfl_round`` a CWFL round, one ``ota_aggregate`` a COTAF
-    round, none of the other), peak device memory, and the round-3
-    accuracy against its floor.  Returns the launches by kernels-summary
-    row."""
-    import dataclasses
-
+    """Each row of PAPER_RUNS through ``run_setting`` on the card, at its
+    rounds: steady rounds/s (rounds 2..T), the kernels' launches counted
+    from 0 for the run (one ``cwfl_round`` a CWFL round, one
+    ``ota_aggregate`` a COTAF round, none of the other), peak device
+    memory, and the last round's accuracy against its floor.  Returns the
+    launches by kernels-summary row."""
     from repro_torch.paper.common import BenchScale, run_setting
     from repro_torch.utils import tree_size
 
-    scale = dataclasses.replace(BenchScale.full(), rounds=PAPER_ROUNDS)
     launches_by_row = {}
-    for label, ds, strategy, C, mu, row, floor in PAPER_RUNS:
+    for label, ds, strategy, C, mu, row, floor, rounds in PAPER_RUNS:
+        scale = dataclasses.replace(BenchScale.full(), rounds=rounds)
         stamps = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1436,9 +1457,9 @@ def paper_phase(omod, kmod) -> dict:
         d = tree_size(h["final_params"])
         line = {"phase": "paper", "row": label, "strategy": strategy,
                 "clusters": C, "mu_prox": mu, "d": d,
-                "rounds": PAPER_ROUNDS, "wall_s": wall,
+                "rounds": rounds, "wall_s": wall,
                 "seconds_per_round": h["seconds_per_round"],
-                "steady_rounds_per_s": (PAPER_ROUNDS - 1) / (stamps[-1]
+                "steady_rounds_per_s": (rounds - 1) / (stamps[-1]
                                                              - stamps[0]),
                 "launches": launches,
                 "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -1447,16 +1468,16 @@ def paper_phase(omod, kmod) -> dict:
         emit(line)
         kernel = "cwfl_round" if strategy == "cwfl" else "ota_aggregate"
         want = {"ota_aggregate": 0, "cwfl_round": 0, "cwfl_round_guard": 0,
-                kernel: PAPER_ROUNDS}
+                kernel: rounds}
         if launches != want:
             raise AssertionError(f"{label}: kernel launches {launches}, "
-                                 f"expected {want} in {PAPER_ROUNDS} rounds")
+                                 f"expected {want} in {rounds} rounds")
         if d != (698250 if ds == "cifar" else 184214):
             raise AssertionError(f"{label}: flat dimension {d}")
         if not all(math.isfinite(x) for x in h["train_loss"]):
             raise AssertionError(f"{label}: non-finite train loss {line}")
         if not h["test_acc"][-1] >= floor:
-            raise AssertionError(f"{label}: round-{PAPER_ROUNDS} test "
+            raise AssertionError(f"{label}: round-{rounds} test "
                                  f"accuracy {h['test_acc'][-1]} < {floor}")
         launches_by_row[row] = launches_by_row.get(row, 0) + \
             launches[kernel]
@@ -5067,6 +5088,313 @@ def launch_phase(fa) -> dict:
             "long": long_rows}
 
 
+# The channel process's kernel (csrc/channel_view.cu): a 10-round
+# cluster-churn process at the paper's K = 50, one trajectory and a sweep's
+# stack of 8; the f64 rate for its glibc powf from NVIDIA's H100 SXM data
+# sheet (FP64 outside the tensor cores).
+CHANNEL_K, CHANNEL_ROUNDS, CHANNEL_STACK = 50, 10, 8
+F64_FLOPS = 34e12
+# Operations a link: two glibc powf (22 f64 operations each, its table
+# lookups aside), and 45 f32 ones (the step's 14, the distance, the
+# products, XLA's abs and log).
+CHANNEL_F64_OPS, CHANNEL_F32_OPS = 44, 45
+
+
+def _channel_inputs(B, t_rounds: int = CHANNEL_ROUNDS):
+    """The cluster-churn process at K = CHANNEL_K on the CPU: its first
+    state (``B`` trajectories, or one with ``B`` None) and ``t_rounds``
+    rounds of draws, from `TorchDraws` seeded 0..B-1."""
+    from repro_torch.core import TopologyConfig, make_topology
+    from repro_torch.sim import TorchDraws
+    from repro_torch.sim import processes as proc
+
+    K = CHANNEL_K
+    tcfg = TopologyConfig(num_clients=K)
+    topo = make_topology(0, tcfg, device="cpu")
+    src = [TorchDraws(b, "cpu") for b in range(B or 1)]
+    way = torch.stack([d.channel_init(K) for d in src])
+    draws = [proc.ChannelDraws(*(torch.stack(x) for x in zip(
+        *[d.channel_step(t, K) for d in src]))) for t in range(t_rounds)]
+    if B is None:
+        way = way[0]
+        draws = [proc.ChannelDraws(*(x[0] for x in u)) for u in draws]
+    state = proc.init_channel(topo, tcfg, way,
+                              mode="eager" if B is None else "jit")
+    return tcfg, state, draws
+
+
+def _bitwise(a, b) -> bool:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        (a.view(torch.uint8) == b.view(torch.uint8)).all())
+
+
+def channel_kernel_phase(cmod) -> dict:
+    """``csrc/channel_view.cu`` bitwise against its plain version on the
+    card and on the CPU, every output of every round of a 10-round
+    cluster-churn process at K = 50: one trajectory, and a sweep's stack
+    of 8 (each element also against its lone launch); the view alone too.
+    Then the stack's step and view timed against the plain version on the
+    card, beside its bytes and operations bounds.  Returns the kernel
+    row."""
+    from repro_torch.kernels.channel_view import (bytes_moved,
+                                                  channel_round_ref)
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim import processes as proc
+
+    pcfg = get_scenario("cluster-churn").channel
+
+    def to_card(x):
+        return type(x)(*(v.to(DEVICE) for v in x))
+
+    checks = {}
+    for label, B in (("trajectory", None), ("stack", CHANNEL_STACK)):
+        tcfg, state, draws = _channel_inputs(B)
+        c = proc._constants(pcfg, tcfg, CHANNEL_K)
+        bad = {"kernel_vs_plain_card": 0, "kernel_vs_cpu": 0,
+               "plain_card_vs_cpu": 0, "stack_vs_lone": 0,
+               "view_only": 0}
+        outputs = 0
+        for u in draws:
+            cpu = channel_round_ref(*state, u, c)
+            st, uc = to_card(state), to_card(u)
+            ker = cmod.channel_round(*st, uc, c)
+            plain = channel_round_ref(*st, uc, c)
+            view = cmod.channel_round(*st, None, c)
+            for k, p, w in zip(ker, plain, cpu):
+                outputs += 1
+                bad["kernel_vs_plain_card"] += not _bitwise(k, p)
+                bad["kernel_vs_cpu"] += not _bitwise(k, w)
+                bad["plain_card_vs_cpu"] += not _bitwise(p, w)
+            bad["view_only"] += sum(not _bitwise(a, b) for a, b in zip(
+                view[4:], channel_round_ref(*state, None, c)[4:]))
+            if B is not None:
+                for b in range(B):
+                    lone = cmod.channel_round(
+                        *(x[b] for x in st),
+                        proc.ChannelDraws(*(x[b] for x in uc)), c)
+                    bad["stack_vs_lone"] += sum(
+                        not _bitwise(a, x[b]) for a, x in zip(lone, ker))
+            state = proc.ChannelState(*cpu[:4])
+        checks[label] = {"outputs": outputs, "mismatched": bad}
+        if any(bad.values()):
+            raise AssertionError(f"channel_view.cu is not bitwise its plain "
+                                 f"version ({label}): {bad}")
+    st, uc = to_card(state), to_card(draws[0])
+    launch = lambda: cmod.channel_round(*st, uc, c)      # noqa: E731
+    plain = lambda: channel_round_ref(*st, uc, c)       # noqa: E731
+    bw, peak, *_ = card_peaks(torch.cuda.get_device_name(0))
+    links = CHANNEL_STACK * CHANNEL_K ** 2
+    # The clients that reach their waypoint this round, as the step
+    # decides it: only their fresh waypoint uniforms are read.
+    t = st.waypoints - st.positions
+    arrived = int((torch.sqrt((t * t).sum(-1) + 1e-12) <= pcfg.speed).sum())
+    nbytes = bytes_moved(CHANNEL_STACK, CHANNEL_K, arrived=arrived)
+    bound_bytes = nbytes / bw * 1e3
+    bound_ops = (links * CHANNEL_F64_OPS / F64_FLOPS
+                 + links * CHANNEL_F32_OPS / peak) * 1e3
+    ms, plain_ms = time_cold(launch), time_cold(plain)
+    dev, plain_dev = device_ms(launch), device_ms(plain)
+    line = {"phase": "channel_kernel", "checks": checks,
+            "shape": {"B": CHANNEL_STACK, "K": CHANNEL_K}, "bytes": nbytes,
+            "arrived": arrived,
+            "ms": ms, "plain_ms": plain_ms, "device_ms": dev,
+            "plain_device_ms": plain_dev, "bound_ms_bytes": bound_bytes,
+            "bound_ms_operations": bound_ops}
+    emit(line)
+    above_bound("channel_view", {"ms": ms, "device_ms": dev}, bound_bytes)
+    return {"name": f"channel_view[S={CHANNEL_STACK} K={CHANNEL_K}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/channel_view.cu",
+            "replaces": "none: XLA's fused CPU loops of "
+                        "src/repro/sim/processes.py:118 (step_channel) and "
+                        ":151 (channel_view), no Pallas twin",
+            "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": ("bytes" if bound_bytes >= bound_ops
+                         else "operations"),
+            "library_ms": None, "device_ms": dev,
+            "plain_device_ms": plain_dev,
+            "shape": {"B": CHANNEL_STACK, "K": CHANNEL_K}}
+
+
+def churn_phase(cmod, kmod, rounds: int = 10) -> dict:
+    """The cluster-churn run at full width (K = 50) on the card: its
+    channel kernel launched once a round (none in a paper-static run),
+    the heads it elects (printed, not compared: the card is held against
+    the CPU at the tie, `tie_phase`, and the kernel against its plain
+    version, `channel_kernel_phase`), and the scan's steady rounds/s
+    (rounds 2..T of the ``execute`` phase, as `scripts/churn_ab.py`
+    reads it).  Returns the launches of the churn run."""
+    from repro_torch.core import TopologyConfig
+    from repro_torch.obs import PhaseTimers
+    from repro_torch.sim import TorchDraws
+    from repro_torch.training import FLConfig, run_federated
+
+    workload = full_width_workload()
+    topo_cfg = TopologyConfig(num_clients=int(workload[4].shape[0]))
+    cfg = FLConfig(rounds=rounds, num_clusters=3, snr_db=40.0, seed=0)
+    counts, heads = {}, None
+    for name in ("cluster-churn", "paper-static"):
+        cmod.launches = 0
+        h = run_federated(*workload, cfg, scenario=name, topo_cfg=topo_cfg,
+                          device=DEVICE, mode="loop")
+        torch.cuda.synchronize()
+        counts[name] = cmod.launches
+        heads = heads or h.get("scenario", {}).get("heads")
+    if counts != {"cluster-churn": rounds, "paper-static": 0}:
+        raise AssertionError(f"channel_view launches {counts}, expected "
+                             f"one a churn round and none in paper-static")
+    rates = []
+    for _ in range(3):
+        timers = PhaseTimers()
+        run_federated(*workload, dataclasses.replace(cfg, rounds=6),
+                      scenario="cluster-churn", topo_cfg=topo_cfg,
+                      device=DEVICE, mode="scan", timers=timers)
+        torch.cuda.synchronize()
+        rates.append(5 / timers.seconds["execute"])
+    line = {"phase": "churn", "K": 50, "rounds": rounds,
+            "channel_view_launches": counts,
+            "heads": heads,
+            "scan_rounds_per_s": rates}
+    emit(line)
+    return counts["cluster-churn"]
+
+
+def tie_phase() -> dict:
+    """The cluster-head tie at JAX's topology seed 19, K = 8
+    (`scripts/churn_tie_k8_seed19.json`, written by
+    `scripts/jax_tie_reference.py` from the JAX package on the CPU): the
+    port's cluster-churn run replays JAX's channel and re-clustering draws
+    on the card and on the CPU, and elects at rounds 0 and 5, in JAX's
+    jitted order and in the eager order, the heads JAX elects there."""
+    import json as _json
+
+    from repro_torch.convert import topology_from_arrays
+    from repro_torch.core import TopologyConfig
+    from repro_torch.core import clustering as tcl
+    from repro_torch.models import make_mnist_mlp, nll_loss
+    from repro_torch.sim import TorchDraws
+    from repro_torch.sim import processes as proc
+    from repro_torch.strategies import builtin
+    from repro_torch.training import FLConfig, run_federated
+
+    ref = _json.loads((ROOT / "scripts" / "churn_tie_k8_seed19.json")
+                      .read_text())
+    K = ref["K"]
+    tcfg = TopologyConfig(num_clients=K)
+    gain = (torch.tensor(ref["link_gain_re"])
+            + 1j * torch.tensor(ref["link_gain_im"])).to(torch.complex64)
+
+    class Replay(TorchDraws):
+        """TorchDraws, but JAX's channel and re-clustering draws."""
+
+        def channel_init(self, num_clients):
+            return torch.tensor(ref["waypoints0"])
+
+        def channel_step(self, round_, num_clients):
+            u = ref["channel"][round_]
+            return proc.ChannelDraws(*(torch.tensor(u[k]) for k in (
+                "fade_re", "fade_im", "shadow", "waypoints")))
+
+        def recluster_first(self, round_, num_clients):
+            return torch.tensor(ref["recluster_first"][round_])
+
+    init, apply = make_mnist_mlp(hidden=(32,))
+    loss = lambda p, x, y: nll_loss(apply(p, x), y)   # noqa: E731
+    cfg = FLConfig(rounds=ref["rounds"], eval_samples=256, lr=0.05,
+                   snr_db=40.0)
+    heads = {}
+    make = tcl.make_cluster_plan
+    for dev in (DEVICE, "cpu"):
+        topo = topology_from_arrays(ref["positions"], gain, tcfg,
+                                    device=dev)
+        _, xs, ys, xte, yte = small_workload(dev)
+        for order in ("jitted", "eager"):
+            builtin.cl.make_cluster_plan = (
+                lambda *a, o=order, **kw: make(*a, **dict(
+                    kw, jitted=o == "jitted")))
+            try:
+                h = run_federated(init, apply, loss, topo, xs, ys, xte, yte,
+                                  cfg, scenario="cluster-churn",
+                                  topo_cfg=tcfg, draws=Replay(0, "cpu"),
+                                  device=dev, mode="loop")
+            finally:
+                builtin.cl.make_cluster_plan = make
+            hs = h["scenario"]["heads"]
+            heads[(dev, order)] = [hs[0], hs[5]]
+    want = {"jitted": ref["heads_jitted"], "eager": ref["heads_eager"]}
+    line = {"phase": "tie", "topology_seed": 19, "K": K,
+            "heads": {f"{d}/{o}": v for (d, o), v in heads.items()},
+            "jax": want}
+    emit(line)
+    for (dev, order), got in heads.items():
+        if got != want[order]:
+            raise AssertionError(f"the tie at seed 19: {dev} elects "
+                                 f"{got} in the {order} order, JAX "
+                                 f"{want[order]}: {line}")
+    return line
+
+
+def dtensor_phase() -> dict:
+    """The sharding rules' placements on a one-rank NCCL `DeviceMesh`
+    (data, model): every parameter leaf of Qwen2.5-3B at full width, its
+    depth cut to one layer, drawn on the card, through `distribute_tensor`
+    with `repro_torch.dist.sharding_rules.placements` of its spec and back
+    by `full_tensor`, bitwise."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding_rules as sr
+    from repro_torch.launch import dryrun
+
+    cfg = get_config("qwen2.5-3b").replace(num_layers=1)
+    meta = dryrun._meta_params(cfg)
+    store = ROOT / "build" / f"dtensor-store-{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        def walk(tree):
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree) for x in walk(tree[k])]
+            return [tree]
+
+        leaves = walk(meta)
+        specs = walk(sr.param_specs(meta, {"data": 1, "model": 1}))
+        g = torch.Generator(DEVICE).manual_seed(0)
+        bad, sharded = [], 0
+        for leaf, spec in zip(leaves, specs):
+            x = torch.randn(leaf.shape, generator=g, device=DEVICE)
+            place = sr.placements(spec, mesh)
+            sharded += any(p.is_shard() for p in place)
+            d = distribute_tensor(x, mesh, place)
+            if not torch.equal(d.full_tensor(), x):
+                bad.append((tuple(leaf.shape), spec))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    line = {"phase": "dtensor", "config": "qwen2.5-3b (1 layer)",
+            "leaves": len(leaves), "sharded_leaves": sharded,
+            "mismatched": bad}
+    emit(line)
+    if bad or not sharded:
+        raise AssertionError(f"the DTensor round trip: {line}")
+    return line
+
+
 def literal_weight_phase(kmod) -> dict:
     """One CWFL round in the literal-weight modes (``normalize=False``,
     ``precode=False``) at the paper's MNIST width through kernel 1, on the
@@ -5121,6 +5449,7 @@ def main() -> None:
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
                           str(ROOT / "build" / "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    from repro_torch.kernels import channel_view as cmod
     from repro_torch.kernels import cwfl_round as kmod
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ota_aggregate as omod
@@ -5146,12 +5475,14 @@ def main() -> None:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    sources = [kmod.SOURCE, omod.SOURCE, *fa.SOURCES, fa.SOURCE_BWD]
+    sources = [kmod.SOURCE, omod.SOURCE, *fa.SOURCES, fa.SOURCE_BWD,
+               cmod.SOURCE]
     cold = not any(library_path(src).exists() for src in sources)
     t0 = time.perf_counter()
     build(sources)
     kmod._library()
     omod._library()
+    cmod._library()
     for dtype in (torch.float32, torch.bfloat16):
         fa._library(dtype)
         fa._library_bwd(dtype)
@@ -5162,7 +5493,8 @@ def main() -> None:
                           (["flash_attention"], fa.SOURCE_F32),
                           (["flash_attention_bf16"], fa.SOURCE_BF16),
                           (["flash_attention_bwd", "flash_attention_bwd_bf16"],
-                           fa.SOURCE_BWD)):
+                           fa.SOURCE_BWD),
+                          (["channel_view"], cmod.SOURCE)):
         log = library_path(source).with_suffix(".log").read_text()
         libraries[library_path(source).name] = {
             "kernels": names,
@@ -5172,7 +5504,8 @@ def main() -> None:
     emit({"phase": "build",
           "kernels": ["cwfl_round", "cwfl_round_guard", "ota_aggregate",
                       "flash_attention", "flash_attention_bf16",
-                      "flash_attention_bwd", "flash_attention_bwd_bf16"],
+                      "flash_attention_bwd", "flash_attention_bwd_bf16",
+                      "channel_view"],
           "seconds": seconds, "cold": cold, "libraries": libraries})
 
     cwfl_row, cwfl_cifar_row, cwfl_c4_row = kernel_phase(kmod,
@@ -5183,9 +5516,11 @@ def main() -> None:
     fa_row, fa_bf16_row = flash_kernel_phase(fa, flash_attention_ref)
     batched_cwfl_row, batched_guard_row, batched_ota_row = \
         batched_kernel_phase(kmod, omod, cwfl_round_ref, ota_aggregate_ref)
+    channel_row = channel_kernel_phase(cmod)
     rows = [cwfl_row, guard_row, ota_row, ota_c1_row, ota_c50_row, fa_row,
             fa_bf16_row, cwfl_cifar_row, cwfl_c4_row, ota_cifar_row,
-            batched_cwfl_row, batched_guard_row, batched_ota_row]
+            batched_cwfl_row, batched_guard_row, batched_ota_row,
+            channel_row]
     reference_phase("paper-static")
     reference_phase("flaky-clients", "flaky-clients")
     dead = reference_phase("dead-cluster", dead_cluster_scenario(),
@@ -5197,6 +5532,7 @@ def main() -> None:
         reference_phase(name, strategy=name)
     reference_phase("cotaf-flaky-clients", "flaky-clients",
                     strategy="cotaf")
+    tie_phase()
     cnn_reference_phase("cwfl")
     cnn_reference_phase("cotaf", mu_prox=0.1)
     lm_reference_phase(fa)
@@ -5205,6 +5541,10 @@ def main() -> None:
     guard_row["launches"] = scenario_phase(kmod, omod, static["test_acc"])
     ota_c1_row["launches"], ota_c50_row["launches"] = strategies_phase(
         omod, kmod)
+    channel_row["launches"] = churn_phase(cmod, kmod)
+    channel_row["launches_per_round"] = {"cluster-churn": 1,
+                                         "paper-static": 0}
+    dtensor_phase()
     quickstart_phase(omod, kmod)
     paper_launches = paper_phase(omod, kmod)
     for row in (cwfl_cifar_row, cwfl_c4_row, ota_cifar_row):

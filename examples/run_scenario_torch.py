@@ -23,6 +23,8 @@ run_monte_carlo` and reports mean ± std across seeds.
 ``torch.distributed`` process group, ``--shard clients`` the K clients of
 one trajectory; launched by ``torchrun`` the script joins its group (NCCL
 on the card, gloo on the CPU), otherwise it runs a group of one rank.
+``--devices N`` runs the shards on the first N ranks of the group (a
+``torch.distributed.new_group``; 0, the default, is all of them).
 ``--assert-match-vmap`` re-runs an ``--shard mc`` sweep unsharded and
 asserts the metrics match.
 
@@ -99,6 +101,9 @@ def main() -> None:
                     help="mc: split the Monte-Carlo trajectory grid over "
                          "the process group's ranks; clients: split the K "
                          "clients of one trajectory")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks for --shard: the first N of the torchrun "
+                         "group (0 = all)")
     ap.add_argument("--assert-match-vmap", action="store_true",
                     help="with --shard mc: also run the unsharded sweep "
                          "and assert the metrics match")
@@ -188,13 +193,24 @@ def main() -> None:
                  "run stays resumable; add --checkpoint-dir")
 
     device = resolve_device(args.device)
-    rank = 0
+    rank, group = 0, None
     if args.shard is not None:
         import torch.distributed as dist
 
         _join_group(device)
-        rank = dist.get_rank()
-        print(f"shard={args.shard} ranks={dist.get_world_size()}")
+        rank, world = dist.get_rank(), dist.get_world_size()
+        n = args.devices or world
+        if n > world:
+            dist.destroy_process_group()
+            ap.error(f"--devices {n}: the process group has {world} "
+                     f"rank(s)")
+        if n < world:
+            # Every rank makes the group; the first n run in it.
+            group = dist.new_group(list(range(n)))
+        print(f"shard={args.shard} ranks={n} of {world}")
+        if rank >= n:
+            dist.destroy_process_group()
+            return
 
     tcfg = TopologyConfig(num_clients=args.clients, num_hotspots=3)
     topo = make_topology(7, tcfg, device=device)
@@ -253,10 +269,10 @@ def main() -> None:
         if is_sweep:
             h = run_monte_carlo(init, apply, loss, topo, xs, ys, xte, yte,
                                 cfg, seeds=args.seeds, shard=args.shard,
-                                **common)
+                                group=group, **common)
         else:
             h = run_rounds(init, apply, loss, topo, xs, ys, xte, yte, cfg,
-                           shard=args.shard,
+                           shard=args.shard, group=group,
                            checkpoint_dir=args.checkpoint_dir,
                            checkpoint_every=args.checkpoint_every,
                            resume=args.resume, resume_step=args.resume_step,

@@ -145,8 +145,9 @@ def _plan_from_features(feats: torch.Tensor, link_snr: torch.Tensor,
     # 1,050 of one at K = 65, 80, 100, 127, 200 (C = 2, 3, 5), and its
     # jitted heads in the sweep of `tests/test_torch_election.py`.  The
     # port's own features of the same link SNRs are XLA's bits
-    # (`xla_math.db10`) and elect the same heads there; the port's own
-    # channel view is within a few ulp of JAX's, not bitwise (ROADMAP §3).
+    # (`xla_math.db10`) and elect the same heads there, and its channel
+    # view is JAX's bit for bit (`xla_math.xla_channel_view`), so a run
+    # re-clusters on JAX's SNRs.
     diff = feats[:, None, :] - centroids[None]
     d2 = _sum_sq_in_xla_order(diff, jitted)
     d2_masked = torch.where(assign[:, None] == clusters[None], d2,

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.xla_math import db10
+from repro_torch.core.xla_math import db10, xla_link_snr, xla_pathloss
 from repro_torch.utils.device import resolve_device
 
 
@@ -53,41 +53,26 @@ class Topology:
             adjacency=self.adjacency.to(device))
 
 
-def pathloss_amplitude(positions: torch.Tensor,
-                       cfg: TopologyConfig) -> torch.Tensor:
+def pathloss_amplitude(positions: torch.Tensor, cfg: TopologyConfig,
+                       mode: str = "eager") -> torch.Tensor:
     """(K, K) amplitude pathloss (d/d0)^{-ς/2} from positions
-    (ε-regularized distance, clamped at d0).  Leading axes batch."""
-    diff = positions[..., :, None, :] - positions[..., None, :, :]
-    dist = torch.sqrt(torch.sum(diff ** 2, dim=-1) + 1e-9)
-    dist = torch.clamp(dist, min=cfg.d0)
-    return pow_f32(dist / cfg.d0, -cfg.pathloss_exp / 2.0)
+    (ε-regularized distance, clamped at d0), as XLA computes it in JAX's
+    context ``mode`` (`xla_math.xla_pathloss`: ``"eager"`` for a drawn
+    topology and a run's first channel state, ``"jit"`` in a round and in
+    a sweep's setup).  Leading axes batch."""
+    return xla_pathloss(positions, cfg.d0, -cfg.pathloss_exp / 2.0, mode)
 
 
-def pow_f32(x: torch.Tensor, exponent) -> torch.Tensor:
-    """``x ** exponent`` of an f32 tensor, taken in f64 and rounded to f32.
-    ATen's CPU ``pow`` rounds otherwise in its vectorized loop than in
-    the scalar loop that finishes a tensor's tail, so in f32 an element's
-    bits would depend on where it sits in the tensor; a stacked sweep's
-    trajectory must get its lone run's bits.  In f64 both loops round to
-    the same f32."""
-    return (x.to(torch.float64) ** exponent).to(torch.float32)
-
-
-def link_stats(link_gain: torch.Tensor, cfg: TopologyConfig,
-               db_mode: Optional[str] = "eager"):
+def link_stats(link_gain: torch.Tensor, cfg: TopologyConfig):
     """(link_snr, adjacency) from a (K, K) complex gain matrix: SNR at the
     equal-split reference power P/K and the dB-threshold outage pruning,
-    the dB taken as XLA takes it in JAX's context ``db_mode``
-    (`xla_math.db10`; eagerly for a drawn topology), or by torch's own
-    ``log10`` where ``db_mode`` is None (a round's channel view)."""
-    K = link_gain.shape[0]
-    eye = torch.eye(K, device=link_gain.device)
-    p_ref = cfg.total_power / K
-    link_snr = (torch.abs(link_gain) ** 2) * p_ref / cfg.noise_var
-    link_snr = link_snr * (1.0 - eye)
-    snr_db = (10.0 * torch.log10(torch.clamp(link_snr, min=1e-12))
-              if db_mode is None else db10(link_snr, db_mode))
-    adjacency = (snr_db >= cfg.outage_snr_db) & ~eye.bool()
+    as XLA computes them eagerly, for a drawn topology (a round's view is
+    `repro_torch.sim.processes`')."""
+    K = link_gain.shape[-1]
+    eye = torch.eye(K, dtype=torch.bool, device=link_gain.device)
+    link_snr = xla_link_snr(link_gain.real, link_gain.imag,
+                            cfg.total_power / K, cfg.noise_var)
+    adjacency = (db10(link_snr, "eager") >= cfg.outage_snr_db) & ~eye
     return link_snr, adjacency
 
 
@@ -119,8 +104,13 @@ def make_topology(seed: int = 0, cfg: Optional[TopologyConfig] = None,
     iu = torch.triu(torch.ones(K, K, dtype=torch.bool, device=device),
                     diagonal=1)
     h_tilde = torch.where(iu, h_tilde, h_tilde.T.conj())
-    link_gain = pathloss_amp * h_tilde
-    link_gain = link_gain * (1.0 - torch.eye(K, device=device))
+    # Eager complex products, by the amplitude and then by the mask, their
+    # zero terms kept as XLA's (they sign the zeros of the diagonal).
+    off = 1.0 - torch.eye(K, device=device)
+    g_re = pathloss_amp * h_tilde.real - 0.0 * h_tilde.imag
+    g_im = pathloss_amp * h_tilde.imag + 0.0 * h_tilde.real
+    link_gain = torch.complex(off * g_re - g_im * 0.0,
+                              off * g_im + g_re * 0.0)
 
     link_snr, adjacency = link_stats(link_gain, cfg)
     return Topology(positions=positions, link_gain=link_gain,

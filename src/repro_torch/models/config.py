@@ -68,9 +68,10 @@ class ArchConfig:
     tie_embeddings: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    # The JAX package's compilation and sharding knobs, kept so that a
-    # configuration carries across field for field; the port's eager
-    # Python loop over periods reads none of them.
+    # scan_layers, unroll_loops and act_spec steer JAX's lowering (a
+    # scanned or unrolled period stack) and its activation sharding; the
+    # port keeps them for JAX's field set, and they change nothing it
+    # computes (its periods are a Python loop, one card shards nothing).
     scan_layers: bool = True
     unroll_loops: bool = False
     attn_chunk: int = 512

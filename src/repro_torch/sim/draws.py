@@ -34,6 +34,8 @@ from repro_torch.sim.faults import FaultDraws
 from repro_torch.sim.processes import ChannelDraws
 from repro_torch.utils.nest import nest_stack
 
+_HALF_SQRT = 0.5 ** 0.5
+
 
 class Draws(Protocol):
     def kmeans_first(self, num_clients: int) -> torch.Tensor:
@@ -59,7 +61,8 @@ class Draws(Protocol):
         """(K, 2) uniforms for the channel process's first waypoints."""
 
     def channel_step(self, round_: int, num_clients: int) -> ChannelDraws:
-        """The channel step's normals and waypoint uniforms."""
+        """The channel step's normals of variance ½ (JAX's ``erf_inv(u)``,
+        `ChannelDraws`) and waypoint uniforms."""
 
     def csi_normals(self, round_: int, num_clients: int) -> torch.Tensor:
         """(K,) unit normals of the CSI error."""
@@ -134,9 +137,10 @@ class TorchDraws:
 
     def channel_step(self, round_: int, num_clients: int) -> ChannelDraws:
         K = num_clients
-        return ChannelDraws(fade_re=self._normal(K, K),
-                            fade_im=self._normal(K, K),
-                            shadow=self._normal(K, K),
+        # Normals of variance ½, as `ChannelDraws` takes them.
+        return ChannelDraws(fade_re=self._normal(K, K) * _HALF_SQRT,
+                            fade_im=self._normal(K, K) * _HALF_SQRT,
+                            shadow=self._normal(K, K) * _HALF_SQRT,
                             waypoints=self._uniform(K, 2))
 
     def csi_normals(self, round_: int, num_clients: int) -> torch.Tensor:

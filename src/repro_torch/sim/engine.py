@@ -75,9 +75,8 @@ from repro_torch.optim import sgd
 from repro_torch.sim.draws import (Draws, RoundDraws, TorchDraws, take_round,
                                    take_rounds)
 from repro_torch.sim.faults import init_faults, quarantine_mask, step_faults
-from repro_torch.sim.processes import (ChannelView, channel_view,
-                                       csi_perturbation, init_channel,
-                                       step_channel)
+from repro_torch.sim.processes import (ChannelView, csi_perturbation,
+                                       init_channel, step_and_view)
 from repro_torch.sim.scenarios import Scenario, get_scenario
 from repro_torch.sim.scheduling import init_schedule, participation_mask
 from repro_torch.strategies import get_strategy
@@ -343,12 +342,22 @@ class _Dynamics:
 
     Over B trajectories every process state, draw and record has a
     leading B, the clients are stacked beside K (rows b·K .. b·K + K − 1,
-    as `_Sweep` stacks them), and each per-trajectory step (the
-    processes, the strategy's hooks) runs once for all B under
+    as `_Sweep` stacks them), the channel's step and view run on the
+    stack (one kernel launch), and each other per-trajectory step (the
+    schedule, the faults, the strategy's hooks) runs once for all B under
     ``torch.func.vmap`` (`repro_torch.utils.nest.nest_vmap`); the
     row-wise steps (quarantine, the folds) run on the stacked rows, and
     the aggregation is the strategy's batched sync, one kernel launch.
-    Each trajectory gets the bits of its lone run.
+    Each trajectory gets the bits of its lone run, but for one place
+    where JAX's own sweep parts from its lone run and the port follows
+    JAX: an evolving channel's first state, whose pathloss a sweep's
+    setup takes under ``jit`` and a run eagerly (`init_channel`'s
+    ``mode``).  The two part in the last bit at some links of most
+    topologies (2 of 64 at JAX's topology seed 7, K = 8), so such a
+    sweep's channel state, and any record that comes to turn on it, is
+    its lone run's only where the two pathlosses agree; at K = 50 most
+    trajectories of a cluster-churn sweep part from their lone runs in
+    the last bits of the loss.
 
     ``state0``: the offline state (stacked over B); ``noise_var``: σ² as
     an f32 tensor, () or (B,); ``channel_init``: the channel process's
@@ -378,8 +387,10 @@ class _Dynamics:
             self._carry0["faults"] = self._each(init_faults(
                 scenario.faults, K, device))
         if scenario.channel.evolves_geometry:
-            self._carry0["chan"] = self._map(
-                lambda u: init_channel(topology, topo_cfg, u), channel_init)
+            # A sweep's setup is traced under jit; a run's is eager.
+            self._carry0["chan"] = init_channel(
+                topology, topo_cfg, channel_init,
+                mode="eager" if batch is None else "jit")
         self.reclusters = (strategy.reclusters
                            and scenario.recluster_every > 0)
         if self.reclusters:
@@ -427,11 +438,9 @@ class _Dynamics:
         updates = {}
         view = self.view
         if "chan" in carry:
-            updates["chan"] = self._map(
-                lambda c, u: step_channel(c, sc.channel, tcfg, u),
-                carry["chan"], rd.channel)
-            view = self._map(lambda c: channel_view(c, tcfg),
-                             updates["chan"])
+            # One launch for every trajectory (its leading axes batch).
+            updates["chan"], view = step_and_view(carry["chan"], sc.channel,
+                                                  tcfg, rd.channel)
 
         mask = None
         if "sched" in carry:

@@ -15,20 +15,26 @@ topology becomes a process indexed by the round t, re-derived each round:
 * **Imperfect CSI**: a mean-one log-normal factor on the water-filling
   gains (:func:`csi_perturbation`).
 
-The random draws come in from the `repro_torch.sim.draws` seam: unit
-normals and uniforms (:class:`ChannelDraws`), made into the processes'
-innovations here.
+The random draws come in from the `repro_torch.sim.draws` seam: normals
+of variance ½ and uniforms (:class:`ChannelDraws`), made into the
+processes' innovations here.
+
+A round's step and view are XLA's arithmetic, bit for bit, as JAX's
+jitted round computes them (`repro_torch.core.xla_math`): one launch of
+the `repro_torch.kernels.channel_view` kernel on the card, its plain
+version on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.topology import (Topology, TopologyConfig, link_stats,
-                                       pathloss_amplitude, pow_f32)
+from repro_torch.core.topology import (Topology, TopologyConfig,
+                                       pathloss_amplitude)
+from repro_torch.core.xla_math import channel_constants
+from repro_torch.kernels.channel_view import channel_round
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,90 +80,62 @@ class ChannelView(NamedTuple):
 
 
 class ChannelDraws(NamedTuple):
-    """One round's draws for :func:`step_channel`, in JAX's split order."""
+    """One round's draws for :func:`step_and_view`, in JAX's split order.
+    The normals have variance ½: they are JAX's ``erf_inv(u)``, its unit
+    normal before the √2, which XLA folds into the constants that scale
+    it (`xla_math.channel_constants`)."""
 
-    fade_re: torch.Tensor      # (K, K) unit normals: innovation, real part
-    fade_im: torch.Tensor      # (K, K) unit normals: innovation, imag part
-    shadow: torch.Tensor       # (K, K) unit normals: shadowing innovation
+    fade_re: torch.Tensor      # (K, K) N(0, ½): innovation, real part
+    fade_im: torch.Tensor      # (K, K) N(0, ½): innovation, imag part
+    shadow: torch.Tensor       # (K, K) N(0, ½): shadowing innovation
     waypoints: torch.Tensor    # (K, 2) uniforms in [0, 1): fresh waypoints
 
 
-def _symmetrize(m: torch.Tensor, conj: bool) -> torch.Tensor:
-    """Mirror the strict upper triangle (channel reciprocity)."""
-    K = m.shape[0]
-    iu = torch.triu(torch.ones(K, K, dtype=torch.bool, device=m.device),
-                    diagonal=1)
-    return torch.where(iu, m, m.T.conj() if conj else m.T)
-
-
 def init_channel(topology: Topology, tcfg: TopologyConfig,
-                 waypoints: torch.Tensor) -> ChannelState:
+                 waypoints: torch.Tensor, mode: str = "eager"
+                 ) -> ChannelState:
     """Start the process at the given stationary topology: the recovered
     fading reproduces ``topology.link_gain`` at round 0.  ``waypoints``:
-    (K, 2) uniforms in [0, 1) for the first waypoints."""
+    (..., K, 2) uniforms in [0, 1) for the first waypoints, the leading
+    axes those of a sweep's trajectories.  ``mode``: the context JAX
+    computes the pathloss in (`pathloss_amplitude`): eagerly for a run,
+    ``"jit"`` in a sweep's setup."""
     K = topology.num_clients
+    lead = tuple(waypoints.shape[:-2])
     eye = torch.eye(K, dtype=torch.bool, device=topology.link_gain.device)
-    pathloss = pathloss_amplitude(topology.positions, tcfg)
-    h_tilde = torch.where(eye, 0.0, topology.link_gain / pathloss)
-    return ChannelState(positions=topology.positions,
-                        waypoints=waypoints * tcfg.area_size,
-                        h_tilde=h_tilde.to(torch.complex64),
-                        shadow_db=torch.zeros(K, K, dtype=torch.float32,
-                                              device=eye.device))
+    pathloss = pathloss_amplitude(topology.positions, tcfg, mode)
+    # XLA's complex division by a real divisor divides each part.
+    g = topology.link_gain
+    h_tilde = torch.complex(torch.where(eye, 0.0, g.real / pathloss),
+                            torch.where(eye, 0.0, g.imag / pathloss))
+    return ChannelState(
+        positions=topology.positions.expand(lead + (K, 2)).clone(),
+        waypoints=waypoints * tcfg.area_size,
+        h_tilde=h_tilde.expand(lead + (K, K)).clone(),
+        shadow_db=torch.zeros(lead + (K, K), dtype=torch.float32,
+                              device=eye.device))
 
 
-def _ar1(rho: float, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(ρ, sqrt(max(1 − ρ², 0))) in f32."""
-    r = torch.full((), rho, dtype=torch.float32, device=device)
-    return r, torch.sqrt(torch.clamp(1.0 - r ** 2, min=0.0))
+def _constants(cfg: ChannelProcessConfig, tcfg: TopologyConfig,
+               K: int) -> dict:
+    return channel_constants(
+        speed=cfg.speed, fading_rho=cfg.fading_rho,
+        shadowing_rho=cfg.shadowing_rho,
+        shadowing_std_db=cfg.shadowing_std_db, area_size=tcfg.area_size,
+        d0=tcfg.d0, pathloss_exp=tcfg.pathloss_exp,
+        p_ref=tcfg.total_power / K, noise_var=tcfg.noise_var,
+        outage_snr_db=tcfg.outage_snr_db)
 
 
-def step_channel(state: ChannelState, cfg: ChannelProcessConfig,
-                 tcfg: TopologyConfig, u: ChannelDraws) -> ChannelState:
-    """Advance the process one round."""
-    dev = state.positions.device
-
-    # Random-waypoint mobility.
-    to_target = state.waypoints - state.positions
-    dist = torch.sqrt(torch.sum(to_target ** 2, dim=-1, keepdim=True)
-                      + 1e-12)
-    arrived = dist[:, 0] <= cfg.speed
-    positions = state.positions + torch.clamp(cfg.speed / dist,
-                                              max=1.0) * to_target
-    waypoints = torch.where(arrived[:, None], u.waypoints * tcfg.area_size,
-                            state.waypoints)
-
-    # Gauss-Markov Rayleigh fading (ρ = 1 ⇒ exactly static), with a
-    # symmetric CN(0, 1) innovation as `make_topology` draws the channel.
-    rho, innov_std = _ar1(cfg.fading_rho, dev)
-    innov = _symmetrize(torch.complex(u.fade_re / math.sqrt(2.0),
-                                      u.fade_im / math.sqrt(2.0)), conj=True)
-    h_tilde = rho * state.h_tilde + innov_std * innov
-
-    # AR(1) log-normal shadowing in dB (stationary variance σ_sh²).
-    rho_s, shadow_std = _ar1(cfg.shadowing_rho, dev)
-    n = _symmetrize(cfg.shadowing_std_db * u.shadow, conj=False)
-    shadow_db = rho_s * state.shadow_db + shadow_std * n
-    return ChannelState(positions=positions, waypoints=waypoints,
-                        h_tilde=h_tilde, shadow_db=shadow_db)
-
-
-def channel_view(state: ChannelState, tcfg: TopologyConfig) -> ChannelView:
-    """One round's gains, SNRs and graph from the process state, by
-    `make_topology`'s own rules (`pathloss_amplitude`, `link_stats`)."""
-    K = state.positions.shape[0]
-    off = 1.0 - torch.eye(K, device=state.positions.device)
-    amp = pathloss_amplitude(state.positions, tcfg) * pow_f32(
-        torch.full((), 10.0, device=off.device), state.shadow_db / 20.0)
-    link_gain = amp * state.h_tilde * off
-    # The outage threshold in torch's own log10: XLA's (`xla_math.db10`)
-    # costs about 1 ms a round of the cluster-churn scan at K = 50 on an
-    # NVIDIA H100 80GB HBM3 (700 W), and buys no bits while this view's
-    # link SNRs are a few ulp from JAX's (its pathloss `pow`, `sqrt` and
-    # |h|² are not XLA's).
-    link_snr, adjacency = link_stats(link_gain, tcfg, db_mode=None)
-    return ChannelView(link_gain=link_gain, link_snr=link_snr,
-                       adjacency=adjacency)
+def step_and_view(state: ChannelState, cfg: ChannelProcessConfig,
+                  tcfg: TopologyConfig, u: ChannelDraws
+                  ) -> tuple[ChannelState, ChannelView]:
+    """Advance the process one round and realize the round's gains, SNRs
+    and graph by `make_topology`'s rules, as JAX's jitted round does
+    (one kernel launch on the card).  Leading axes batch trajectories."""
+    out = channel_round(*state, u, _constants(cfg, tcfg,
+                                              state.positions.shape[-2]))
+    return ChannelState(*out[:4]), ChannelView(*out[4:])
 
 
 def csi_perturbation(z: torch.Tensor, log_std: float) -> torch.Tensor:

@@ -60,6 +60,8 @@ from repro_torch.sim.engine import (_Checkpoints, _history, _on, _phase,
                                     _prepare, _reference_numerics,
                                     _run_sweep, check_obs_args,
                                     checkpoint_manifest, scan_rounds)
+from repro_torch.dist.sharding_rules import (client_specs, shard_size,
+                                             trajectory_specs)
 from repro_torch.sim.scenarios import Scenario, get_scenario
 from repro_torch.strategies import get_strategy
 from repro_torch.utils.device import resolve_device
@@ -103,10 +105,13 @@ def make_sharded_sweep_fn(init_fn: Callable, apply_fn: Callable,
     its chunk drawn by ``draws_of(seed)``, default `TorchDraws`; a seed's
     trajectories share one `Draws`), then the chunks are gathered."""
     rank, world = dist.get_rank(group), dist.get_world_size(group)
-    if n_pad % world:
+    # The chunk a rank runs, from the dist rules (JAX's shard_map in-spec).
+    mesh = {"mc": world}
+    spec = trajectory_specs(torch.empty(n_pad, device="meta"), mesh)
+    if spec[0] is None:
         raise ValueError(f"{n_pad} trajectories do not divide over the "
                          f"{world} ranks of the process group")
-    chunk = n_pad // world
+    chunk = shard_size(spec, 0, n_pad, mesh)
     device = resolve_device(device)
 
     def sweep(seed_flat: Sequence[int], snr_flat: Sequence):
@@ -351,10 +356,13 @@ def run_rounds_client_sharded(init_fn: Callable, apply_fn: Callable,
             "init_process_group first")
     rank, world = dist.get_rank(group), dist.get_world_size(group)
     K, n_k = int(xs.shape[0]), int(xs.shape[1])
-    if K % world:
+    # The client split, from the dist rules (JAX's shard_map in-specs).
+    mesh = {"clients": world}
+    spec = client_specs(xs, mesh)
+    if spec[0] is None:
         raise ValueError(f"K={K} clients must divide over the {world} ranks "
                          f"of the process group")
-    kl = K // world
+    kl = shard_size(spec, 0, K, mesh)
     rows = slice(rank * kl, (rank + 1) * kl)
 
     device = resolve_device(device)

@@ -56,6 +56,48 @@ def tree_size(tree: Tree) -> int:
     return sum(x.numel() for x in tree_leaves(tree))
 
 
+def tree_add(a: Tree, b: Tree) -> Tree:
+    """``a + b`` leaf by leaf."""
+    la, treedef = tree_flatten(a)
+    return tree_unflatten(treedef, [x + y for x, y in zip(la,
+                                                          tree_leaves(b))])
+
+
+def tree_scale(a: Tree, s) -> Tree:
+    """Every leaf times ``s``."""
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_zeros_like(a: Tree) -> Tree:
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_weighted_sum(trees: Sequence[Tree], weights) -> Tree:
+    """Σᵢ weights[i]·trees[i], summed in order from 0 as JAX's (``weights``
+    as an f32 tensor unless given as a tensor)."""
+    if not torch.is_tensor(weights):
+        weights = torch.as_tensor(weights, dtype=torch.float32)
+    flat = [tree_flatten(t) for t in trees]
+    treedef = flat[0][1]
+    out = []
+    for leaves in zip(*(f[0] for f in flat)):
+        acc = 0
+        for w, x in zip(weights.to(leaves[0].device), leaves):
+            acc = acc + w * x
+        out.append(acc)
+    return tree_unflatten(treedef, out)
+
+
+def tree_sq_norm(a: Tree) -> torch.Tensor:
+    """Σ over the leaves of Σ x², each leaf in f32."""
+    return sum(torch.sum(torch.square(x.to(torch.float32)))
+               for x in tree_leaves(a))
+
+
+def tree_l2_norm(a: Tree) -> torch.Tensor:
+    return torch.sqrt(tree_sq_norm(a))
+
+
 def tree_add_noise(tree: Tree, sigma,
                    noise: Union[torch.Generator, Sequence[torch.Tensor]]
                    ) -> Tree:

@@ -3,7 +3,8 @@
 ``paper_fig2_torch.py``, ``run_scenario_torch.py``,
 ``obs_report_torch.py``, ``train_lm_cwfl_torch.py`` and
 ``serve_decode_torch.py``, nor the chip phase scripts of the training
-and dry-run slices, imports ``jax`` or the JAX package ``repro``."""
+and dry-run slices and of the channel process, imports ``jax`` or the
+JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -25,7 +26,9 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "scripts" / "mixers_phase.py",
     ROOT / "scripts" / "train_phase.py",
     ROOT / "scripts" / "launch_phase.py",
-    ROOT / "scripts" / "churn_ab.py"]
+    ROOT / "scripts" / "churn_ab.py",
+    ROOT / "scripts" / "channel_phase.py",
+    ROOT / "scripts" / "paper_seeds.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -56,7 +59,8 @@ def test_the_checked_files_cover_every_slice():
             "configs/phi4_mini_3_8b.py", "configs/llama3_405b.py",
             "core/xla_math.py", "launch/__init__.py", "launch/dryrun.py",
             "launch/mesh.py", "launch/report.py",
-            "launch/roofline.py"} <= checked
+            "launch/roofline.py", "kernels/channel_view.py",
+            "dist/sharding_rules.py", "utils/pytree.py"} <= checked
     assert ROOT / "examples" / "train_lm_cwfl_torch.py" in FILES
     assert ROOT / "examples" / "serve_decode_torch.py" in FILES
 

@@ -147,6 +147,42 @@ def test_dynamic_sweep_elements_equal_lone_runs(workload, strategy,
                 assert torch.equal(h["scenario"][k][s, g], v), k
 
 
+def test_dynamic_sweep_starts_from_jax_sweeps_channel_state(workload,
+                                                            monkeypatch):
+    """At JAX's topology seed 7 the eager and the jitted pathloss part in
+    the last bit at two links.  JAX's lone run takes its first channel
+    state eagerly and its sweep under ``jit``; the port's lone run and
+    sweep start from the same states as JAX's, bit for bit, so here a
+    sweep element's channel state is not its lone run's."""
+    from repro.sim import processes as jproc
+    from repro_torch.sim import engine
+
+    topo, _ = workload
+    jcfg = jtopo.TopologyConfig(num_clients=K)
+    key = jax.random.PRNGKey(0)
+    want = {"eager": np.asarray(jproc.init_channel(topo, jcfg, key).h_tilde),
+            "jit": np.asarray(jax.jit(lambda k: jproc.init_channel(
+                topo, jcfg, k).h_tilde)(key))}
+    assert not np.array_equal(want["eager"], want["jit"])
+    step, firsts = engine.step_and_view, []
+
+    def recording(state, *args):
+        firsts.append(state.h_tilde.clone())
+        return step(state, *args)
+
+    monkeypatch.setattr(engine, "step_and_view", recording)
+    cfg = FLConfig(rounds=1, snr_db=40.0, eval_samples=EVAL, seed=0,
+                   lr=0.05)
+    kw = dict(scenario="cluster-churn", topo_cfg=TopologyConfig(
+        num_clients=K), device="cpu")
+    run_monte_carlo(*_port(workload), cfg, seeds=2, **kw)
+    run_rounds(*_port(workload), cfg, **kw)
+    sweep, lone = firsts
+    for b in range(2):
+        np.testing.assert_array_equal(sweep[b].numpy(), want["jit"])
+    np.testing.assert_array_equal(lone.numpy(), want["eager"])
+
+
 def test_dynamic_sweep_hands_the_kernel_a_dead_row(workload, monkeypatch):
     """A fault sweep whose clusters die (crash 0.6, recover 0.2) hands the
     batched round kernel (guarded) a dead Ã row in one trajectory while

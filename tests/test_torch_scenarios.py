@@ -48,14 +48,23 @@ def _t(x, dtype=None):
     return torch.as_tensor(np.array(x), dtype=dtype)
 
 
+# ``jax.random.normal`` is √2·erf_inv(u) (``jax.random._normal_real``);
+# the channel's draws are erf_inv(u), since XLA folds the √2 into the
+# step's constants.
+_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+_erf_inv_draw = jax.jit(
+    lambda key, shape: jax.lax.erf_inv(jax.random.uniform(
+        key, shape, jnp.float32, _LO, 1.0)), static_argnums=1)
+
+
 def _channel_draws(key, K):
     """`repro.sim.processes.step_channel`'s draws from its key."""
     k_fade, k_shadow, k_way = jax.random.split(key, 3)
     k_re, k_im = jax.random.split(k_fade)
     return tproc.ChannelDraws(
-        fade_re=_t(jax.random.normal(k_re, (K, K))),
-        fade_im=_t(jax.random.normal(k_im, (K, K))),
-        shadow=_t(jax.random.normal(k_shadow, (K, K))),
+        fade_re=_t(_erf_inv_draw(k_re, (K, K))),
+        fade_im=_t(_erf_inv_draw(k_im, (K, K))),
+        shadow=_t(_erf_inv_draw(k_shadow, (K, K))),
         waypoints=_t(jax.random.uniform(k_way, (K, 2))))
 
 
@@ -153,7 +162,8 @@ def test_init_channel_reproduces_the_topology(channel_world):
                                np.asarray(ref.waypoints), rtol=RTOL)
     np.testing.assert_allclose(got.h_tilde.numpy(), np.asarray(ref.h_tilde),
                                rtol=RTOL, atol=1e-7)
-    view = tproc.channel_view(got, ttcfg)
+    c = tproc._constants(tproc.ChannelProcessConfig(), ttcfg, 12)
+    view = tproc.ChannelView(*tproc.channel_round(*got, None, c)[4:])
     np.testing.assert_allclose(view.link_gain.numpy(),
                                ttop.link_gain.numpy(), rtol=RTOL,
                                atol=1e-12)
@@ -172,8 +182,8 @@ def test_step_channel_and_view_match_jax(channel_world, name):
     step = jax.jit(jproc.step_channel, static_argnums=(1, 2))
     for t, key in enumerate(jax.random.split(jax.random.PRNGKey(2), 4)):
         ref = step(ref, pcfg, tcfg, key)
-        got = tproc.step_channel(got, get_scenario(name).channel, ttcfg,
-                                 _channel_draws(key, 12))
+        got, view = tproc.step_and_view(got, get_scenario(name).channel,
+                                        ttcfg, _channel_draws(key, 12))
         for field in ("positions", "waypoints", "shadow_db"):
             np.testing.assert_allclose(
                 getattr(got, field).numpy(), np.asarray(getattr(ref, field)),
@@ -181,8 +191,7 @@ def test_step_channel_and_view_match_jax(channel_world, name):
         np.testing.assert_allclose(got.h_tilde.numpy(),
                                    np.asarray(ref.h_tilde), rtol=RTOL,
                                    atol=1e-6)
-        _assert_view(tproc.channel_view(got, ttcfg),
-                     jproc.channel_view(ref, tcfg))
+        _assert_view(view, jproc.channel_view(ref, tcfg))
 
 
 @pytest.mark.parametrize("log_std", [0.1, 0.5])
@@ -347,15 +356,41 @@ def test_run_federated_scenario_matches_jax(workload, scenario):
         assert min(rec["alive"]) < K     # the faults did strike
 
 
-@pytest.mark.parametrize("topology_seed", [0, 9, 16])
+def _jax_round0_heads(topo, tcfg):
+    """JAX's cluster-churn round 0 at ``cfg.seed`` = 0: its view (the
+    engine's init and key chain; the jitted step and view, which are the
+    engine's bits) and the heads its election picks there eagerly and
+    under ``jit``."""
+    from repro.core import clustering as jcl
+
+    key = jax.random.PRNGKey(0)
+    chan = jproc.init_channel(topo, tcfg,
+                              jax.random.fold_in(key, jengine._SIM_SALT + 1))
+    skey = jax.random.split(jax.random.fold_in(key, jengine._SIM_SALT),
+                            ROUNDS)[0]
+    k_chan, _, _, k_cluster = jax.random.split(skey, 4)
+    pcfg = JAX_SCENARIOS["cluster-churn"].channel
+    view = jax.jit(lambda s, k: jproc.channel_view(
+        jproc.step_channel(s, pcfg, tcfg, k), tcfg))(chan, k_chan)
+    plan = functools.partial(jcl.make_cluster_plan,
+                             num_clusters=C, key=k_cluster)
+    return ([int(h) for h in plan(view.link_snr, view.adjacency).heads],
+            [int(h) for h in jax.jit(plan)(view.link_snr,
+                                           view.adjacency).heads])
+
+
+# At K = 8, the round-0 re-clusterings of topology seeds 4, 5, 8, 14, 17
+# and 19 among 0..24 are ties on JAX's bits: a two-member cluster whose
+# head the election's rounding picks, so the eager order elects another
+# head than the jitted one.
+@pytest.mark.parametrize("topology_seed", [0, 4, 9, 16, 19])
 def test_cluster_churn_head_tie_matches_jax(workload, topology_seed):
-    """A cluster-churn run on a topology whose round-0 re-clustering has a
-    two-member cluster, whose head the election's rounding picks: the
-    eager order (the offline plan's) elects another head than the jitted
-    one, and the port's run, which elects in JAX's jitted order, follows
-    JAX's trajectory.  These are the first three of the four such
-    topologies among seeds 0..24 at K = 8; the fourth, seed 19, parts
-    from JAX in either order (ROADMAP §3)."""
+    """A cluster-churn run re-clusters at round 0 on its channel view,
+    which is JAX's bit for bit (`xla_math`).  Electing in JAX's jitted
+    order, as JAX's engine does, the port's run follows JAX's trajectory;
+    electing in the eager order, it elects the heads JAX's eager election
+    picks on the same view.  At a tie (seeds 4 and 19) the two orders
+    part, at 0, 9 and 16 they agree."""
     from repro_torch.core import clustering as tcl
     from repro_torch.strategies import builtin
 
@@ -372,35 +407,10 @@ def test_cluster_churn_head_tie_matches_jax(workload, topology_seed):
                              port_only=True)
     finally:
         builtin.cl.make_cluster_plan = make
-    assert eager["scenario"]["heads"][0] != got["scenario"]["heads"][0]
-
-
-@pytest.mark.parametrize("jitted", [True, False])
-def test_cluster_churn_tie_at_topology_19_still_parts_from_jax(workload,
-                                                               jitted):
-    """The fourth tie topology among seeds 0..24 at K = 8, seed 19: the
-    port's cluster-churn run parts from JAX's trajectory whichever order
-    it elects in.  Its features are XLA's bits of its link SNRs
-    (`xla_math.db10`), but its round-0 channel view is not JAX's: 26 of
-    its 64 link SNRs differ by up to 3 ulp (ROADMAP §3).  The divergence
-    is held as it stands, so that it stays in view: a change that closes
-    it fails this test, and seed 19 then joins
-    `test_cluster_churn_head_tie_matches_jax`'s seeds."""
-    from repro_torch.core import clustering as tcl
-    from repro_torch.strategies import builtin
-
-    topo = jtopo.make_topology(jax.random.PRNGKey(19),
-                               jtopo.TopologyConfig(num_clients=K))
-    world = (topo,) + tuple(workload[1:])
-    make = tcl.make_cluster_plan
-    builtin.cl.make_cluster_plan = (
-        lambda *a, **kw: make(*a, **dict(kw, jitted=jitted)))
-    try:
-        got, ref = _run_both(world, "cluster-churn")
-    finally:
-        builtin.cl.make_cluster_plan = make
-    with pytest.raises(AssertionError):
-        _assert_trajectory(got, ref)
+    jax_eager, jax_jitted = _jax_round0_heads(topo, workload[1])
+    assert got["scenario"]["heads"][0] == jax_jitted
+    assert eager["scenario"]["heads"][0] == jax_eager
+    assert (jax_eager != jax_jitted) == (topology_seed in (4, 19))
 
 
 def test_flaky_clients_quarantines_a_poisoned_client_as_jax(workload):
