@@ -1,0 +1,2 @@
+"""`idle_pct.sweep`: see `portbench.metrics._shared.idle_pct`."""
+from portbench.metrics._shared import idle_pct as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""`mfu.scan`: see `portbench.metrics._shared.mfu`."""
+from portbench.metrics._shared import mfu as read  # noqa: F401
